@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``sift3d_tpu_torch/csrc/`` have a plain C interface.
-At first use they are compiled with nvcc for sm_90a into one shared
-library, ``build/sift3d_tpu_torch/libs3d_kernels.so`` under the checkout
-root, and loaded with ctypes. The library is rebuilt when a source or a
+At first use they are compiled with nvcc for sm_90a, one nvcc per
+source, all started together, and linked into one shared library,
+``build/sift3d_tpu_torch/libs3d_kernels.so`` under the checkout root,
+and loaded with ctypes. The library is rebuilt when a source or a
 flag changes (a hash of both is stored beside it).
 
 Every entry point returns ``cudaGetLastError()`` after its launch;
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -27,7 +29,7 @@ SOURCES = ("blur.cu", "extrema.cu", "ori.cu", "desc.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sift3d_tpu_torch"
 LIB_NAME = "libs3d_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _I64 = ctypes.c_int64
@@ -36,9 +38,11 @@ _SIGNATURES = {
     "s3d_blur_axis_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "s3d_dog_max": (_P, _P, _P, _P, _I64, _P),
     "s3d_extrema_mask": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "s3d_ori_moments": (_P, _P, _P, _P, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _F, _F, _F, _F, _P),
-    "s3d_desc_hist": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "s3d_orient": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                   _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    "s3d_eigh3x3": (_P, _P, _P, _I64, _P),
+    "s3d_desc_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 
 _lib = None
@@ -67,20 +71,27 @@ def _digest() -> str:
     return h.hexdigest()
 
 
+def _run(cmd) -> None:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+
+
 def _build(so: Path, stamp: Path, digest: str) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(p) for p in source_paths())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (p.stem + ".o")) for p in source_paths()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                    for o, p in zip(objs, source_paths())]
+        with ThreadPoolExecutor(len(compiles)) as pool:
+            list(pool.map(_run, compiles))
+        out = str(Path(tmp) / LIB_NAME)
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs])
+        os.replace(out, so)
     stamp.write_text(digest)
     build_seconds = time.perf_counter() - t0
 

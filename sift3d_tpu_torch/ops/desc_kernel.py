@@ -1,46 +1,54 @@
-"""Icosahedral descriptor histogram accumulation.
+"""Icosahedral descriptor histograms of one octave, window prep included.
 
 Replaces the TPU kernel ``sift3d_tpu/ops/desc_kernel.py:304
-desc_hist_pallas`` (``_desc_hist_packed``/``_desc_hist_single``). Input per
-keypoint k and window voxel n: grot f32[K, 3, N], the gradient rotated into
-the keypoint frame and Gaussian-weighted (zero where the voxel is masked
-out), and vbins f32[K, 3, N], its spatial bin coordinates in [0, 4). Output
-hist f32[K, 16, 48] = [(cz, cy), (cx, v)]: each voxel adds |grot| times a
-2-sparse trilinear weight per axis (SIFT3D_desc_acc_interp,
-sift.c:1340-1363) times the 3-sparse barycentric weight over the vertices
-of the first icosahedron face, in face order, that the gradient pierces
-(icos_hist_bin, sift.c:1254-1291), by the division-free hit test of
-sift3d_tpu/descriptor.py:151-172.
+desc_hist_pallas`` (``_desc_hist_packed``/``_desc_hist_single``) together
+with the window prep that fed it (``sift3d_tpu/descriptor.py:216
+_prep_window``). Per keypoint k, on its level, around its center with
+scale sd[k] and rotation R[k]: every voxel of the loop-bound box
+(IM_LOOP_SPHERE_START, sift.c:86-109) inside the sphere of radius
+win_radius = desc_rad_fctr * desc_sig_fctr * sd whose spatial bin
+coordinates vb = (R^T d + half_width) * bin_fctr lie in [0, 4)
+(sift.c:1452-1492) adds |grot| times a 2-sparse trilinear weight per axis
+(SIFT3D_desc_acc_interp, sift.c:1340-1363) times the 3-sparse barycentric
+weight over the vertices of the first icosahedron face, in face order,
+that grot = R^T (w g) pierces (icos_hist_bin, sift.c:1254-1291), by the
+division-free hit test of sift3d_tpu/descriptor.py:151-172. Output hist
+f32[K, 16, 48] = [(cz, cy), (cx, v)].
 
-CUDA kernel (csrc/desc.cu, ``s3d_desc_hist``): a 2-D grid of (keypoint,
-voxel slice); each block keeps a private float[768] histogram in shared
-memory, its threads stride over the slice, run the 20-face test with the
-same round-to-nearest arithmetic and add 24 contributions with
-shared-memory atomics; the block then adds its histogram into the
-keypoint's output with global atomics. The antipodal face pairing, the
-8-keypoint packing, the affine-vbins layout and the skip-flag words of
-the TPU kernel served its MXU and scalar core and are not carried over.
+CUDA kernel (csrc/desc.cu, ``s3d_desc_fused``): a 2-D grid of (keypoint,
+slice of its box); each block reads the level in place and computes the
+gradient, the masks, the weight, grot and vb of each voxel in registers,
+with the operations of ``prep_windows`` in its order, then runs the
+20-face test and adds 24 contributions into a per-warp histogram in shared
+memory; the block merges its histograms and adds them into the keypoint's
+output with global atomics. grot and vb never reach device memory. The
+antipodal face pairing, the 8-keypoint packing, the affine-vbins layout
+and the skip-flag words of the TPU kernel served its MXU and scalar core
+and are not carried over.
 
-Bound on the H100: shared-memory atomics on 768 bins (neighboring voxels
-hit neighboring bins) and the 24 B/voxel read of grot + vbins. The sums
+Bound on the H100: operations — some 400 f32 operations a voxel of the
+box, most of them the face test — and the shared-memory atomics. The sums
 run in an order that changes from run to run (tolerance: rel-L2 1e-5 per
-descriptor). Fusing the window prep into the kernel, so grot and vbins
-never reach device memory, is later work.
+descriptor).
 
-On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
-tensor it launches the kernel or raises.
+The plain version is ``prep_windows`` (gathered windows, masks and
+rotation as batched tensor math, as the TPU package kept it in XLA) and
+``desc_hist_plain`` (the dense per-voxel contraction). On a CPU tensor the
+wrapper runs it; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
 from .. import geometry
 from ..params import ICOS_NFACES, ICOS_NVERT, NHIST_PER_DIM
-from . import _build
+from ..windows import gather_windows, window_extent
+from . import _build, warm_cpu_math
 
 launches = 0   # kernel launches on CUDA tensors (chip_smoke.py reads it)
 
@@ -48,6 +56,10 @@ NB = NHIST_PER_DIM
 # Blocks per keypoint are chosen so a launch has at least this many.
 _MIN_BLOCKS = 4 * 132
 _VOX_PER_BLOCK_MIN = 4096
+_SQRT2 = math.sqrt(2.0)
+# Keypoints per batch of the plain version: bounds its transient memory to
+# about this many window voxels (~80 bytes each).
+_PREP_VOXELS = 12_000_000
 
 
 @functools.lru_cache(maxsize=8)
@@ -126,25 +138,136 @@ def desc_hist_plain(grot: torch.Tensor, vbins: torch.Tensor, eps: float,
     return out
 
 
-def desc_hist(grot: torch.Tensor, vbins: torch.Tensor,
-              eps: float) -> torch.Tensor:
-    """Histograms f32[K, 16, 48] of K keypoints' prepped windows
-    (grot, vbins f32[K, 3, N]); eps is bary_eps."""
+
+
+def level_radius(sd: float, params) -> float:
+    """Descriptor window radius at scale sd, in f32 as the C code."""
+    sigma = np.float32(np.float32(sd) * np.float32(params.desc_sig_fctr))
+    return float(np.float32(params.desc_rad_fctr) * sigma)
+
+
+def window_extents(sd_max: float, units, dims, params):
+    """Window size per axis that holds the loop-bound box of every
+    keypoint of scale <= sd_max (windows.window_extent)."""
+    rad = level_radius(sd_max, params)
+    return tuple(window_extent(rad / units[a], dims[a]) for a in range(3))
+
+
+def prep_windows(levels: torch.Tensor, lvl: torch.Tensor,
+                 coords: torch.Tensor, centers: torch.Tensor,
+                 R: torch.Tensor, sd: torch.Tensor, units, extents,
+                 params):
+    """(grot, vbins) f32[K, 3, N] for desc_hist_plain, N the window
+    interior's voxel count; masked voxels get a zero gradient."""
+    warm_cpu_math(levels.device)
+    nb = NB
+    K = coords.shape[0]
+    dev = levels.device
+    n = levels.shape[1:]
+    sigma = sd * float(np.float32(params.desc_sig_fctr))
+    win_radius = sigma * float(np.float32(params.desc_rad_fctr))
+    half_width = win_radius / float(np.float32(_SQRT2))
+    bin_fctr = 1.0 / (2.0 * half_width / float(nb))
+
+    win, start = gather_windows(levels, lvl, coords, extents)
+    u = [float(np.float32(x)) for x in units]
+    inv = [float(np.float32(1.0) / np.float32(x)) for x in units]
+    g3 = (0.5 * (win[:, 2:, 1:-1, 1:-1] - win[:, :-2, 1:-1, 1:-1]) * inv[0],
+          0.5 * (win[:, 1:-1, 2:, 1:-1] - win[:, 1:-1, :-2, 1:-1]) * inv[1],
+          0.5 * (win[:, 1:-1, 1:-1, 2:] - win[:, 1:-1, 1:-1, :-2]) * inv[2])
+    ishape = tuple(e - 2 for e in extents)
+
+    def col(t):   # [K] -> broadcastable [K, 1, 1, 1]
+        return t.reshape(K, 1, 1, 1)
+
+    mask = torch.ones((K,) + ishape, dtype=torch.bool, device=dev)
+    d3 = []
+    for a in range(3):
+        shape = [K, 1, 1, 1]
+        shape[1 + a] = ishape[a]
+        idx = (start[:, a, None] + 1
+               + torch.arange(ishape[a], device=dev)).reshape(shape)
+        c = centers[:, a]
+        lo = torch.clamp(torch.floor(c - win_radius / u[a]), min=1.0)
+        hi = torch.clamp(torch.ceil(c + win_radius / u[a]),
+                         max=float(n[a] - 2))
+        mask &= (idx >= col(lo.long())) & (idx <= col(hi.long()))
+        d3.append((idx.float() - col(c)) * u[a])
+    sq = d3[0] * d3[0] + d3[1] * d3[1] + d3[2] * d3[2]
+    mask &= sq <= col(win_radius * win_radius)
+
+    # vkp = R^T vim, one output component at a time.
+    vbins = []
+    for j in range(3):
+        vkp = (d3[0] * col(R[:, 0, j]) + d3[1] * col(R[:, 1, j])
+               + d3[2] * col(R[:, 2, j]))
+        vb = (vkp + col(half_width)) * col(bin_fctr)
+        mask &= (vb >= 0.0) & (vb < float(nb))
+        vbins.append(vb.reshape(K, -1))
+    s = col(sigma)
+    w = torch.where(mask, torch.exp(-0.5 * sq / (s * s)), 0.0)
+    wg = [w * g for g in g3]
+    grot = [(wg[0] * col(R[:, 0, j]) + wg[1] * col(R[:, 1, j])
+             + wg[2] * col(R[:, 2, j])).reshape(K, -1) for j in range(3)]
+    return torch.stack(grot, dim=1), torch.stack(vbins, dim=1)
+
+
+def desc_fused_plain(levels: torch.Tensor, lvl: torch.Tensor,
+                     centers: torch.Tensor, R: torch.Tensor,
+                     sd: torch.Tensor, units, params,
+                     sd_max: float) -> torch.Tensor:
+    """Plain version: prep_windows then desc_hist_plain, in batches of
+    keypoints whose windows hold about _PREP_VOXELS voxels."""
+    K = centers.shape[0]
+    extents = window_extents(sd_max, units, levels.shape[1:], params)
+    coords = centers.round().long()
+    nvox = int(np.prod([e - 2 for e in extents]))
+    step = max(1, _PREP_VOXELS // nvox)
+    hists = [torch.zeros((0, NB * NB, NB * ICOS_NVERT), device=levels.device)]
+    for s in range(0, K, step):
+        sl = slice(s, s + step)
+        grot, vbins = prep_windows(levels, lvl[sl], coords[sl], centers[sl],
+                                   R[sl], sd[sl], units, extents, params)
+        hists.append(desc_hist_plain(grot, vbins, params.bary_eps))
+    return torch.cat(hists)
+
+
+def desc_fused(levels: torch.Tensor, lvl: torch.Tensor,
+               centers: torch.Tensor, R: torch.Tensor, sd: torch.Tensor,
+               units, params, sd_max: float) -> torch.Tensor:
+    """Histograms f32[K, 16, 48] of K keypoints of one octave.
+
+    levels f32[L, nx, ny, nz]; lvl i64[K] level per keypoint; centers
+    f32[K, 3] integer-valued; R f32[K, 3, 3]; sd f32[K] absolute scale,
+    all <= sd_max; params a DetectorParams."""
     global launches
-    if grot.device.type == "cpu":
-        return desc_hist_plain(grot, vbins, eps)
-    K, _, N = grot.shape
-    _build.check_cuda("desc_hist grot", grot, torch.float32, (K, 3, N))
-    _build.check_cuda("desc_hist vbins", vbins, torch.float32, (K, 3, N))
+    if levels.device.type == "cpu":
+        return desc_fused_plain(levels, lvl, centers, R, sd, units, params,
+                                sd_max)
+    K = centers.shape[0]
+    _, nx, ny, nz = levels.shape
+    _build.check_cuda("desc_fused levels", levels, torch.float32)
+    _build.check_cuda("desc_fused lvl", lvl, torch.int64, (K,))
+    _build.check_cuda("desc_fused centers", centers, torch.float32, (K, 3))
+    _build.check_cuda("desc_fused R", R, torch.float32, (K, 3, 3))
+    _build.check_cuda("desc_fused sd", sd, torch.float32, (K,))
     out = torch.zeros((K, NB * NB, NB * ICOS_NVERT), dtype=torch.float32,
-                      device=grot.device)
-    if K == 0 or N == 0:
+                      device=levels.device)
+    if K == 0:
         return out
-    geom, face_idx = _consts(grot.device)
-    splits = max(1, min(-(-_MIN_BLOCKS // K), N // _VOX_PER_BLOCK_MIN))
-    _build.call("s3d_desc_hist", grot.data_ptr(), vbins.data_ptr(),
-                geom.data_ptr(), face_idx.data_ptr(), out.data_ptr(),
-                K, N, splits, float(np.float32(eps)),
-                _build.stream_ptr(grot))
+    # The largest loop-bound box, which sizes the split of each keypoint.
+    box = int(np.prod([e - 2 for e in window_extents(
+        sd_max, units, levels.shape[1:], params)]))
+    splits = max(1, min(-(-_MIN_BLOCKS // K), box // _VOX_PER_BLOCK_MIN))
+    geom, face_idx = _consts(levels.device)
+    u = [np.float32(x) for x in units]
+    inv = [np.float32(1.0) / x for x in u]
+    scal = [*u, *inv, params.desc_sig_fctr, params.desc_rad_fctr, _SQRT2,
+            params.bary_eps]
+    _build.call("s3d_desc_fused", levels.data_ptr(), lvl.data_ptr(),
+                centers.data_ptr(), R.data_ptr(), sd.data_ptr(),
+                geom.data_ptr(), face_idx.data_ptr(), out.data_ptr(), K,
+                splits, nx, ny, nz, *(float(np.float32(x)) for x in scal),
+                _build.stream_ptr(levels))
     launches += 1
     return out

@@ -1,41 +1,61 @@
-"""Orientation window moments.
+"""Orientation of one octave's candidates: moments, eigh3x3, rejection, R.
 
 Replaces the TPU kernel ``sift3d_tpu/ops/ori_kernel.py:167
-ori_moments_pallas``. Per keypoint k, on pyramid level lvl[k] and around
-center (cx, cy, cz) with scale sd (fp[k] = (cx, cy, cz, sd)): central-
-difference gradients times 1/units (IM_GET_GRAD_ISO, sift.c:140-145), the
-reference's loop bounds [max(floor(c - rad/u), 1), min(ceil(c + rad/u),
-n-2)] computed in f32 and the sphere |d| <= rad (IM_LOOP_SPHERE_START,
-sift.c:86-109), with sigma = ori_sig_fctr * sd, rad = ori_rad_fctr *
-sigma, and the weight exp(-r^2 / (2 sigma^2)). Outputs the structure
-tensor A = sum w g g^T f32[K, 3, 3] and vd = sum w g f32[K, 3]
-(assign_eig_ori, sift.c:963-989).
+ori_moments_pallas`` and the epilogue that ran after it in the same XLA
+program (``sift3d_tpu/orientation.py:250-289``). Per keypoint k, on
+pyramid level lvl[k] around the integer center coords[k] with scale sd[k]:
+central-difference gradients times 1/units (IM_GET_GRAD_ISO,
+sift.c:140-145), the reference's loop bounds [max(floor(c - rad/u), 1),
+min(ceil(c + rad/u), n-2)] computed in f32 and the sphere |d| <= rad
+(IM_LOOP_SPHERE_START, sift.c:86-109), with sigma = ori_sig_fctr * sd,
+rad = ori_rad_fctr * sigma and the weight exp(-r^2 / (2 sigma^2)), give
+the structure tensor A = sum w g g^T and vd = sum w g (assign_eig_ori,
+sift.c:963-989). Then eigh3x3 (6 cyclic Jacobi sweeps, eigenvalues
+ascending), the weak-gradient, eigenvalue-ratio and corner tests
+(sift.c:996-1102) and R = [r0, r1, r0 x r1] from the two largest
+eigenvectors, each signed so the directional derivative along it is
+positive (sift.c:1017-1059).
 
-CUDA kernel (csrc/ori.cu, ``s3d_ori_moments``): one block per keypoint;
-its threads stride over the voxels of the loop-bound box, read the level
-in place (no window is gathered into memory) and accumulate the 9 moment
-sums in f32 registers, then a warp-shuffle + shared-memory block
-reduction. One launch covers a whole octave (the level index is per
-keypoint).
+CUDA kernel (csrc/ori.cu, ``s3d_orient``): one block per keypoint walks
+the loop-bound box of its level in place and reduces the 9 moment sums;
+one thread then runs eigh3x3, the tests and R in registers. One launch per
+octave writes A, vd, R and the four predicates. ``s3d_eigh3x3`` exports
+the kernel's eigensolver alone, batched, so that the card can hold it bit
+for bit against ``eigh3x3_plain``.
 
 Bound on the H100: latency — a few hundred keypoints of ~10^4 voxels each
-is a small, gather-like read; a block per keypoint gives every SM work at
-256^3 densities. The sums run in another order than the plain version
-(tolerance: rel 1e-5).
+is a few microseconds of reads. The moment sums run in another order than
+the plain version (tolerance: rel 1e-5); the eigensolver and the tests use
+the plain version's operations in its order.
 
-On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
-tensor it launches the kernel or raises.
+On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
+tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..windows import gather_windows, window_extent
-from . import _build
+from . import _build, warm_cpu_math
 
-launches = 0   # kernel launches on CUDA tensors (chip_smoke.py reads it)
+launches = 0        # s3d_orient launches on CUDA tensors (chip_smoke.py)
+eigh_launches = 0   # s3d_eigh3x3 launches on CUDA tensors (chip_smoke.py)
+
+
+class Orientation(NamedTuple):
+    A: torch.Tensor              # f32[K, 3, 3] structure tensor
+    vd: torch.Tensor             # f32[K, 3] weighted gradient sum
+    R: torch.Tensor              # f32[K, 3, 3]
+    accepted: torch.Tensor       # bool[K]
+    # Raw stage predicates, in the reference's short-circuit order
+    # (grad -> ratio -> corner, sift.c:996-1102).
+    reject_grad: torch.Tensor    # bool[K]
+    reject_ratio: torch.Tensor   # bool[K]
+    reject_corner: torch.Tensor  # bool[K]
 
 
 def _moments_chunk(levels, lvl, fp, units, sig_fctr, rad_fctr, extents):
@@ -78,8 +98,10 @@ def _moments_chunk(levels, lvl, fp, units, sig_fctr, rad_fctr, extents):
 def ori_moments_plain(levels: torch.Tensor, lvl: torch.Tensor,
                       fp: torch.Tensor, units, sig_fctr: float,
                       rad_fctr: float, chunk: int = 256):
-    """Plain version: gathered windows and masked sums, as
-    sift3d_tpu/orientation.py:48 _window_moments."""
+    """Window moments (A [K, 3, 3], vd [K, 3]) from gathered windows and
+    masked sums, as sift3d_tpu/orientation.py:48 _window_moments.
+    fp f32[K, 4] = (cx, cy, cz, sd) with integer-valued centers."""
+    warm_cpu_math(levels.device)
     n = levels.shape[1:]
     rad_max = sig_fctr * float(fp[:, 3].max()) * rad_fctr
     extents = tuple(window_extent(rad_max / units[a], n[a])
@@ -91,30 +113,149 @@ def ori_moments_plain(levels: torch.Tensor, lvl: torch.Tensor,
             torch.cat([p[1] for p in parts]))
 
 
-def ori_moments(levels: torch.Tensor, lvl: torch.Tensor, fp: torch.Tensor,
-                units, sig_fctr: float, rad_fctr: float):
-    """Window moments (A f32[K, 3, 3], vd f32[K, 3]) of K keypoints.
+def eigh3x3_plain(A: torch.Tensor):
+    """Batched symmetric 3x3 eigendecomposition by 6 fixed sweeps of
+    cyclic Jacobi rotations: eigenvalues ascending, eigenvectors in
+    columns (the convention of LAPACK dsyevd used by eigen_Mat_rm,
+    imutil.c:960-1067). Same arithmetic as sift3d_tpu/orientation.py:110
+    eigh3x3."""
+    a = [[A[..., i, j] for j in range(3)] for i in range(3)]
+    V = [[torch.full_like(A[..., 0, 0], float(i == j)) for j in range(3)]
+         for i in range(3)]
+    one = torch.ones_like(A[..., 0, 0])
+    zero = torch.zeros_like(one)
 
-    levels f32[L, nx, ny, nz]; lvl int[K] level per keypoint;
-    fp f32[K, 4] = (cx, cy, cz, sd) with integer-valued centers."""
+    for _ in range(6):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            app, aqq, apq = a[p][p], a[q][q], a[p][q]
+            # Rotation angle zeroing a_pq (Golub & Van Loan 8.4); the
+            # already-zero case keeps c = 1, s = 0.
+            safe = apq.abs() > 0.0
+            tau = (aqq - app) / torch.where(safe, 2.0 * apq, one)
+            t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+            t = torch.where(tau == 0.0, one, t)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = torch.where(safe, t * c, zero)
+            c = torch.where(safe, c, one)
+            # a' = J^T a J: columns p, q, then rows p, q.
+            new = [row[:] for row in a]
+            for k in range(3):
+                akp, akq = a[k][p], a[k][q]
+                new[k][p] = c * akp - s * akq
+                new[k][q] = s * akp + c * akq
+            rows2 = [row[:] for row in new]
+            for k in range(3):
+                apk, aqk = new[p][k], new[q][k]
+                rows2[p][k] = c * apk - s * aqk
+                rows2[q][k] = s * apk + c * aqk
+            a = rows2
+            for k in range(3):
+                vp, vq = V[k][p], V[k][q]
+                V[k][p] = c * vp - s * vq
+                V[k][q] = s * vp + c * vq
+
+    w = torch.stack([a[0][0], a[1][1], a[2][2]], dim=-1)
+    Vm = torch.stack([torch.stack(r, dim=-1) for r in V], dim=-2)
+    order = torch.argsort(w, dim=-1, stable=True)
+    w = torch.gather(w, -1, order)
+    Vm = torch.gather(Vm, -1, order[..., None, :].expand_as(Vm))
+    return w, Vm
+
+
+def eigh3x3(A: torch.Tensor):
+    """(w f32[K, 3], V f32[K, 3, 3]) of symmetric A f32[K, 3, 3]: the
+    eigensolver of the orientation kernel, alone."""
+    global eigh_launches
+    if A.device.type == "cpu":
+        return eigh3x3_plain(A)
+    K = A.shape[0]
+    _build.check_cuda("eigh3x3 A", A, torch.float32, (K, 3, 3))
+    w = torch.empty((K, 3), dtype=torch.float32, device=A.device)
+    V = torch.empty((K, 3, 3), dtype=torch.float32, device=A.device)
+    if K:
+        _build.call("s3d_eigh3x3", A.data_ptr(), w.data_ptr(), V.data_ptr(),
+                    K, _build.stream_ptr(A))
+        eigh_launches += 1
+    return w, V
+
+
+def _epilogue(A, vd, params) -> Orientation:
+    """eigh3x3, the rejection tests and R on moments A, vd (the plain
+    version of the kernel's last thread)."""
+    L, Q = eigh3x3_plain(A)
+
+    grad_sq = (vd * vd).sum(dim=-1)
+    reject_grad = grad_sq < np.float32(params.ori_grad_thresh)
+
+    # Ratio test (sift.c:1011-1015): C computes fabs(l_i / l_{i+1}); inf
+    # compares > thresh (reject), NaN compares false (keep).
+    thr = np.float32(params.max_eig_ratio)
+
+    def gt(r):
+        return torch.where(torch.isnan(r), False, r > thr)
+    reject_ratio = (gt((L[:, 0] / L[:, 1]).abs())
+                    | gt((L[:, 1] / L[:, 2]).abs()))
+
+    # Sign fixing + corner score (sift.c:1017-1059).
+    v2, v1 = Q[:, :, 2], Q[:, :, 1]
+    d2 = (vd * v2).sum(dim=-1)
+    d1 = (vd * v1).sum(dim=-1)
+    gnorm = torch.sqrt(grad_sq)
+    cos2 = d2 / (torch.linalg.vector_norm(v2, dim=-1) * gnorm)
+    cos1 = d1 / (torch.linalg.vector_norm(v1, dim=-1) * gnorm)
+    corner = torch.minimum(cos2.abs(), cos1.abs())
+    r0 = v2 * torch.where(d2 > 0.0, 1.0, -1.0)[:, None]
+    r1 = v1 * torch.where(d1 > 0.0, 1.0, -1.0)[:, None]
+    r2 = torch.linalg.cross(r0, r1, dim=-1)
+    R = torch.stack([r0, r1, r2], dim=-1)
+    reject_corner = corner < np.float32(params.corner_thresh)
+
+    accepted = ~reject_grad & ~reject_ratio & ~reject_corner
+    return Orientation(A, vd, R, accepted, reject_grad, reject_ratio,
+                       reject_corner)
+
+
+def orient_plain(levels: torch.Tensor, lvl: torch.Tensor,
+                 coords: torch.Tensor, sd: torch.Tensor, units,
+                 params) -> Orientation:
+    """Plain version: ori_moments_plain, eigh3x3_plain, then the tests."""
+    fp = torch.cat([coords.to(torch.float32), sd[:, None]], dim=1)
+    A, vd = ori_moments_plain(levels, lvl, fp.contiguous(), units,
+                              params.ori_sig_fctr, params.ori_rad_fctr)
+    return _epilogue(A, vd, params)
+
+
+def orient(levels: torch.Tensor, lvl: torch.Tensor, coords: torch.Tensor,
+           sd: torch.Tensor, units, params) -> Orientation:
+    """Orientation of K keypoints of one octave.
+
+    levels f32[L, nx, ny, nz]; lvl i64[K] level per keypoint; coords
+    i64[K, 3] integer centers; sd f32[K] absolute scale; params a
+    DetectorParams."""
     global launches
-    K = fp.shape[0]
     if levels.device.type == "cpu":
-        return ori_moments_plain(levels, lvl, fp, units, sig_fctr, rad_fctr)
-    L, nx, ny, nz = levels.shape
-    lvl = lvl.to(torch.int32).contiguous()
-    _build.check_cuda("ori_moments levels", levels, torch.float32)
-    _build.check_cuda("ori_moments lvl", lvl, torch.int32, (K,))
-    _build.check_cuda("ori_moments fp", fp, torch.float32, (K, 4))
-    out = torch.empty((K, 12), dtype=torch.float32, device=levels.device)
-    if K == 0:
-        return out[:, :9].reshape(0, 3, 3), out[:, 9:]
-    u = [np.float32(x) for x in units]
-    inv = [np.float32(1.0) / x for x in u]
-    _build.call("s3d_ori_moments", levels.data_ptr(), lvl.data_ptr(),
-                fp.data_ptr(), out.data_ptr(), K, nx, ny, nz,
-                *(float(x) for x in u), *(float(x) for x in inv),
-                float(np.float32(sig_fctr)), float(np.float32(rad_fctr)),
-                _build.stream_ptr(levels))
-    launches += 1
-    return out[:, :9].reshape(K, 3, 3), out[:, 9:].contiguous()
+        return orient_plain(levels, lvl, coords, sd, units, params)
+    K = coords.shape[0]
+    _, nx, ny, nz = levels.shape
+    _build.check_cuda("orient levels", levels, torch.float32)
+    _build.check_cuda("orient lvl", lvl, torch.int64, (K,))
+    _build.check_cuda("orient coords", coords, torch.int64, (K, 3))
+    _build.check_cuda("orient sd", sd, torch.float32, (K,))
+    dev = levels.device
+    moments = torch.empty((K, 12), dtype=torch.float32, device=dev)
+    R = torch.empty((K, 3, 3), dtype=torch.float32, device=dev)
+    flags = torch.empty((K, 4), dtype=torch.bool, device=dev)
+    if K:
+        u = [np.float32(x) for x in units]
+        inv = [np.float32(1.0) / x for x in u]
+        scal = [*u, *inv, params.ori_sig_fctr, params.ori_rad_fctr,
+                params.ori_grad_thresh, params.max_eig_ratio,
+                params.corner_thresh]
+        _build.call("s3d_orient", levels.data_ptr(), lvl.data_ptr(),
+                    coords.data_ptr(), sd.data_ptr(), moments.data_ptr(),
+                    R.data_ptr(), flags.data_ptr(), K, nx, ny, nz,
+                    *(float(np.float32(x)) for x in scal),
+                    _build.stream_ptr(levels))
+        launches += 1
+    return Orientation(moments[:, :9].reshape(K, 3, 3), moments[:, 9:], R,
+                       *flags.unbind(dim=1))

@@ -1,7 +1,10 @@
 """Port descriptors vs the JAX XLA path, on the JAX pyramid.
 
 The JAX pyramid enters the port through SIFT3D.load_pyramid, so these
-tests hold the window prep, the histogram and the normalization alone."""
+tests hold the window prep, the histogram and the normalization alone.
+On the CPU ops.desc_kernel.desc_fused runs its plain version (prep_windows
++ desc_hist_plain), the spec that the fused CUDA kernel is held to on the
+card (test_torch_cuda)."""
 
 import dataclasses
 
@@ -18,8 +21,7 @@ from sift3d_tpu import pyramid as jpyr  # noqa: E402
 from sift3d_tpu.params import DetectorParams as JaxParams  # noqa: E402
 from sift3d_tpu.windows import window_extent  # noqa: E402
 from sift3d_tpu_torch import SIFT3D, Keypoints  # noqa: E402
-from sift3d_tpu_torch.descriptor import prep_windows  # noqa: E402
-from sift3d_tpu_torch.ops.desc_kernel import desc_hist  # noqa: E402
+from sift3d_tpu_torch.ops import desc_kernel as tdk  # noqa: E402
 from sift3d_tpu_torch.params import from_jax_params  # noqa: E402
 
 JP = JaxParams(gpyr_impl="incremental", extrema_impl="xla")
@@ -79,13 +81,11 @@ def test_histograms_match_xla_extract_one(case):
         extents = tuple(window_extent(rad / lu[a], lv.shape[1 + a])
                         for a in range(3))
         coords = kp.coords.astype(np.int64)
-        grot, vbins = prep_windows(
+        got = tdk.desc_fused(
             torch.from_numpy(lv), torch.from_numpy(kp.level.astype(np.int64)),
-            torch.from_numpy(coords),
             torch.from_numpy(kp.coords.astype(np.float32)),
             torch.from_numpy(kp.R), torch.from_numpy(kp.sd.astype(np.float32)),
-            lu, extents, TP)
-        got = desc_hist(grot, vbins, TP.bary_eps).numpy().reshape(-1, 64, 12)
+            lu, TP, sd_max).numpy().reshape(-1, 64, 12)
         for k in range(len(kp)):
             ref = np.asarray(jdesc._extract_one(
                 jnp.asarray(lv), jnp.asarray(coords[k].astype(np.int32)),
@@ -123,3 +123,51 @@ def test_load_pyramid_rejects_wrong_shapes(case):
     det = SIFT3D(TP, "cpu")
     with pytest.raises(ValueError):
         det.load_pyramid([g[:, :-1] for g in gpyr], plan.input_dims, units)
+
+
+def _box_and_window(dims, units, params, sd, centers):
+    """The fused kernel's loop-bound box (csrc/desc.cu, the f32 arithmetic
+    of prep_windows) and the plain version's window interior, per
+    keypoint: i64[K, 3] each of lo, hi, interior lo, interior hi."""
+    from sift3d_tpu_torch.windows import window_starts
+    sd_max = float(sd.max())
+    extents = tdk.window_extents(sd_max, units, dims, params)
+    sigma = sd * float(np.float32(params.desc_sig_fctr))
+    win_radius = sigma * float(np.float32(params.desc_rad_fctr))
+    lo, hi = [], []
+    for a in range(3):
+        ra = win_radius / torch.tensor(np.float32(units[a]))
+        c = centers[:, a]
+        lo.append(torch.clamp(torch.floor(c - ra), min=1.0).long())
+        hi.append(torch.clamp(torch.ceil(c + ra), max=float(dims[a] - 2))
+                  .long())
+    start = window_starts(centers.long(), extents, dims)
+    return (torch.stack(lo, 1), torch.stack(hi, 1), start + 1,
+            start + torch.tensor(extents) - 2)
+
+
+@pytest.mark.parametrize("size, units", [(256, (1.0, 1.0, 1.0)),
+                                         (192, (1.0, 1.0, 1.0)),
+                                         (128, (1.0, 1.0, 1.5)),
+                                         (64, (0.7, 1.0, 1.3))])
+def test_loop_bound_box_lies_inside_window_interior(size, units):
+    """The fused kernel walks each keypoint's loop-bound box; the plain
+    version sees only the voxels of its gathered window. Every box lies in
+    its window's interior, at every level of every octave, for centers on
+    and next to the borders (where the window's start is clipped) and in
+    the middle, so both walk the same voxels."""
+    plan = jpyr.make_plan((size, size, size), units, JP)
+    nl = JP.num_kp_levels
+    for o in range(plan.num_octaves):
+        dims = plan.octave_dims[o]
+        lu = plan.level_units(o)
+        pos = [sorted({0, 1, 2, 3, n // 3, n // 2, n - 4, n - 3, n - 2,
+                       n - 1}) for n in dims]
+        grid = np.stack(np.meshgrid(*pos, indexing="ij"), -1).reshape(-1, 3)
+        for lv in range(nl):
+            sd = torch.full((len(grid),), np.float32(plan.scales[o][lv + 1]))
+            sd[0] = float(np.float32(plan.scales[o][nl]))   # sizes windows
+            lo, hi, ilo, ihi = _box_and_window(
+                dims, lu, TP, sd, torch.from_numpy(grid.astype(np.float32)))
+            assert bool((lo >= ilo).all()) and bool((hi <= ihi).all()), \
+                (o, lv)

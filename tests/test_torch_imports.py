@@ -65,8 +65,9 @@ def test_tf32_disabled_at_import():
 @pytest.mark.parametrize("mod, fn, args", [
     ("blur_kernel", "axis_pass", 4),
     ("extrema_kernel", "extrema_mask", 2),
-    ("ori_kernel", "ori_moments", 6),
-    ("desc_kernel", "desc_hist", 3),
+    ("ori_kernel", "orient", 6),
+    ("ori_kernel", "eigh3x3", 1),
+    ("desc_kernel", "desc_fused", 8),
 ])
 def test_wrappers_use_plain_version_only_on_cpu(mod, fn, args):
     """Each wrapper branches on the tensor's device, never on what is

@@ -195,3 +195,16 @@ def test_flat_volume_gives_no_keypoints():
     det = st.SIFT3D(_params(), "cpu")
     kp = det.detect_keypoints(np.zeros((32, 32, 32), np.float32))
     assert len(kp) == 0 and kp.R.shape == (0, 3, 3)
+
+
+@pytest.mark.parametrize("cell", ["sparse", "dense"])
+def test_chip_smoke_phantoms_are_bench_phantoms(cell):
+    """phantoms.bench_volume builds bench.py's phantoms with torch (on the
+    card in chip_smoke.py, where numpy takes minutes at 256^3) bit for
+    bit."""
+    import bench
+    from sift3d_tpu_torch.phantoms import bench_volume
+    make = {"sparse": bench.make_bench_volume,
+            "dense": bench.make_dense_volume}[cell]
+    got = bench_volume(cell, 24, "cpu").numpy()
+    assert np.array_equal(got, make(24))

@@ -2,12 +2,16 @@
 
 Runs SIFT3D(device="cuda") detect_keypoints + extract_descriptors on a
 256^3 bench phantom (bench.make_bench_volume, or make_dense_volume with
---dense) and prints:
+--dense, built on the card by sift3d_tpu_torch.phantoms) and prints:
  - the wall time of detect and of describe, each ending in a device sync
    (median of 7 runs after a warm-up);
  - from torch.profiler over one more run: device time by kernel, its sum,
    and that sum as a share of the profiled wall time (the device's busy
-   share; the rest is host time with the device idle).
+   share; the rest is host time with the device idle), and the number of
+   device operations launched (kernels, copies and fills: the sum of
+   `count` over the device events);
+ - torch.cuda.max_memory_allocated() over describe, beside what was
+   allocated when describe started (the pyramid it reads).
 --table PATH also writes the profiler's full table there.
 
 Usage: python tools/torch_profile.py [--dense] [--table PATH]
@@ -49,16 +53,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
-    import bench
     import sift3d_tpu_torch as st
+    from sift3d_tpu_torch.phantoms import bench_volume
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     cell = f"{'dense' if args.dense else 'sparse'}{SIZE}"
-    vol = (bench.make_dense_volume(SIZE) if args.dense
-           else bench.make_bench_volume(SIZE))
+    vol = bench_volume("dense" if args.dense else "sparse", SIZE,
+                       "cuda").cpu().numpy()
     det = st.SIFT3D(st.DetectorParams(), "cuda")
 
     def run():
@@ -80,6 +84,17 @@ def main(argv=None) -> int:
     print(f"  wall median over {REPEATS}: detect {det_ms:.2f} ms, "
           f"describe {desc_ms:.2f} ms, total {tot_ms:.2f} ms")
 
+    kp = det.detect_keypoints(vol)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    det.extract_descriptors(kp)
+    torch.cuda.synchronize()
+    mib = 2.0 ** 20
+    print(f"  describe memory: {base / mib:.1f} MiB allocated at its start, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / mib:.1f}"
+          f" MiB")
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -89,9 +104,11 @@ def main(argv=None) -> int:
               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
     events.sort(key=_device_us, reverse=True)
     busy = sum(_device_us(e) for e in events) / 1e3
+    launches = sum(e.count for e in events)
     print(f"  profiled run: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f}%), idle share "
-          f"{100 * (1 - busy / wall):.1f}%")
+          f"{100 * (1 - busy / wall):.1f}%, {launches} device launches "
+          f"(detect + describe)")
     for e in events[:15]:
         print(f"    {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
