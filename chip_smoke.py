@@ -3,13 +3,15 @@
 
 Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), holds each
 kernel against its plain PyTorch version at the 256^3 octave-0 shapes of
-the main path (the orientation kernel's eigensolver bit for bit, alone),
-then runs the main path — SIFT3D(device="cuda"), detect_keypoints +
-extract_descriptors — on the 256^3 sparse and dense bench phantoms, checks
-that every kernel of the path launched in each run, and holds each result
-against its JAX golden file (tests/data/torch_golden_{sparse,dense}256.npz)
-to the reference bars (identical keypoint rows, stale strength within
-1.2e-7 relative, R within 1e-5, every descriptor within 1% relative L2).
+the main path (the blur bit for bit on all six levels of octave 0, the
+extrema candidates identical, the orientation kernel's eigensolver bit for
+bit, alone), then runs the main path — SIFT3D(device="cuda"),
+detect_keypoints + extract_descriptors — on four bench phantoms: 256^3
+sparse and dense, 192^3 sparse, 128^3 sparse at 1 x 1 x 2.5 mm voxels. It
+checks that every kernel of the path launched in each run, and holds each
+result against its JAX golden file (tests/data/torch_golden_*.npz) to the
+reference bars (identical keypoint rows, stale strength within 1.2e-7
+relative, R within 1e-5, every descriptor within 1% relative L2).
 
 Prints the card (nvidia-smi name, power limit), versions and build time,
 one line per phase, a JSON line of per-kernel results (time, plain time,
@@ -32,10 +34,15 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-GOLDENS = {cell: ROOT / "tests" / "data" / f"torch_golden_{cell}256.npz"
-           for cell in ("sparse", "dense")}
-SIZE = 256
+# Main-path cells: (phantom, size, voxel units, runs timed).
+CELLS = {"sparse256": ("sparse", 256, (1.0, 1.0, 1.0), 7),
+         "dense256": ("dense", 256, (1.0, 1.0, 1.0), 3),
+         "sparse192": ("sparse", 192, (1.0, 1.0, 1.0), 3),
+         "aniso128": ("sparse", 128, (1.0, 1.0, 2.5), 3)}
+GOLDENS = {cell: ROOT / "tests" / "data" / f"torch_golden_{cell}.npz"
+           for cell in CELLS}
 REPS = 7
+KERNEL_INNER = 20
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES = 3.35e12
@@ -65,8 +72,11 @@ def card_line() -> str:
         f"nvidia-smi failed: {r.stderr.strip()}"
 
 
-def cuda_ms(torch, fn, reps: int = REPS) -> float:
-    """Median device time of fn in ms (CUDA events), after a warm-up."""
+def cuda_ms(torch, fn, reps: int = REPS, inner: int = 1) -> float:
+    """Median device time of fn in ms (CUDA events), after a warm-up. With
+    inner > 1 the events enclose that many calls back to back and the time
+    is their mean, so the host's launch cost of one call overlaps the
+    device work of the one before (a kernel's time: KERNEL_INNER)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -74,10 +84,11 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -121,7 +132,8 @@ def main() -> int:
         die("PyTorch is not installed")
     if not torch.cuda.is_available():
         die("no CUDA device: this smoke test runs the port on a GPU")
-    needed = [ROOT / "sift3d_tpu_torch", *GOLDENS.values()]
+    needed = [ROOT / "sift3d_tpu_torch", ROOT / "bench.py",
+              *GOLDENS.values()]
     missing = [str(p.relative_to(ROOT)) for p in needed if not p.exists()]
     if missing:
         die(f"run from a checkout of the repository (missing {missing})")
@@ -164,9 +176,9 @@ def main() -> int:
         small = bench_volume(cell, 40, dev).cpu().numpy()
         if not np.array_equal(small, make(40)):
             die(f"bench_volume({cell!r}) differs from bench.py")
-    vols = {cell: bench_volume(cell, SIZE, dev).cpu().numpy()
-            for cell in GOLDENS}
-    vol_np = vols["sparse"]
+    vols = {cell: bench_volume(kind, size, dev).cpu().numpy()
+            for cell, (kind, size, _, _) in CELLS.items()}
+    vol_np = vols["sparse256"]
     plan = make_plan(vol_np.shape, (1.0, 1.0, 1.0), params)
     x = scale_to_unit(torch.from_numpy(vol_np).to(dev))
     s = Smoke()
@@ -174,93 +186,149 @@ def main() -> int:
     st_ = {}   # octave-0 state shared by the kernel phases
 
     def blur_phase():
-        diags = bk._diags(plan, 0, 1, dev)
-        outs = [torch.empty_like(x) for _ in range(3)]
-        err, lib_err = 0.0, 0.0
-        convs = []
-        for axis, (wd, lo) in enumerate(diags):
-            got = bk.axis_pass(x, wd, lo, axis, outs[axis])
-            ref = bk.axis_pass_plain(x, wd, lo, axis)
-            assert torch.equal(got, ref), f"axis {axis} not bit-exact"
-            err = max(err, float((got - ref).abs().max()))
-            # The library yardstick: F.conv3d with the band as a (B,1,1)
-            # filter along the axis. It computes the same function on the
-            # rows whose band is the interior one (conv_diagonals changes
-            # the weights near the clipped edges).
-            n, band = x.shape[axis], wd.shape[1]
-            ksize, pad = [1, 1, 1], [0, 0, 0]
-            ksize[axis], pad[axis] = band, -lo
-            w = wd[n // 2].reshape(1, 1, *ksize).contiguous()
-            convs.append((w, tuple(pad)))
-            # (padding is symmetric: the row past the end is dropped)
-            lib = F.conv3d(x[None, None], w, padding=tuple(pad))[0, 0] \
-                .narrow(axis, 0, n)
-            rows = torch.nonzero((wd == wd[n // 2]).all(dim=1))[:, 0]
-            diff = (lib - got).abs().index_select(axis, rows)
-            lib_err = max(lib_err, float(diff.max()))
-        print(f"       conv3d vs axis pass away from the clipped edges: "
-              f"max abs diff {lib_err:.3g}", flush=True)
-        assert lib_err <= 1e-6
-        tmp = (torch.empty_like(x), torch.empty_like(x))
-        out = torch.empty_like(x)
-
-        def plain_blur():
-            v = x
-            for axis, (wd, lo) in enumerate(diags):
-                v = bk.axis_pass_plain(v, wd, lo, axis)
-            return v
-
-        def library_blur():
-            v = x[None, None]
-            for axis, (w, pad) in enumerate(convs):
-                v = F.conv3d(v, w, padding=pad).narrow(2 + axis, 0,
-                                                       x.shape[axis])
-            return v
-        # Per pass: the mean of the x, y and z passes of one level.
-        ms = cuda_ms(torch, lambda: bk.blur(x, diags, out, tmp)) / 3
-        pms = cuda_ms(torch, plain_blur) / 3
-        lms = cuda_ms(torch, library_blur) / 3
-        taps = sum(wd.shape[1] for wd, _ in diags) / 3
-        s.record("blur_axis_pass", "sift3d_tpu_torch/csrc/blur.cu",
-                 "sift3d_tpu/ops/blur_kernel.py:337", err, ms, pms,
-                 bk.axis_pass_launches,
-                 bound(8 * x.numel(), 2 * taps * x.numel()), lms)
-
-    def dog_phase():
         gpyr, dogs, dmax = build_gpyr_and_dog(x, plan)
         st_.update(gpyr=gpyr[0], dog=dogs[0], dogmax=dmax[0])
-        prev, cur = gpyr[0][0], gpyr[0][1]
-        dog = torch.empty_like(prev)
+        N = x.numel()
+        tmp, cur, dog = (torch.empty_like(x) for _ in range(3))
         dm = torch.zeros(1, device=dev)
-        bk.dog_max(prev, cur, dog, dm)
-        ref, rm = bk.dog_max_plain(prev, cur)
-        assert torch.equal(dog, ref) and torch.equal(dm[0], rm)
-
-        def run():
+        # Per kernel, means over the levels: bytes, ops, ms, plain ms.
+        sums = {k: [0.0] * 4 for k in ("blur_x", "blur_yz_dog")}
+        lib_ms, lib_err, err = 0.0, 0.0, 0.0
+        for i in range(plan.num_gpyr_levels):
+            src = x if i == 0 else gpyr[0][i - 1]
+            diags = bk._diags(plan, 0, i, dev)
+            (wx, lox), (wy, loy), (wz, loz) = diags
+            bx, by, bz = (wd.shape[1] for wd, _ in diags)
+            # The first level of octave 0 has no DoG.
+            prev, dg, m = (None, None, None) if i == 0 else (src, dog, dm)
+            bk.blur_x(src, wx, lox, tmp)
+            xr = bk.blur_x_plain(src, wx, lox)
+            assert torch.equal(tmp, xr), f"level {i}: x pass not bit-exact"
             dm.zero_()
-            bk.dog_max(prev, cur, dog, dm)
-        ms = cuda_ms(torch, run)
-        pms = cuda_ms(torch, lambda: bk.dog_max_plain(prev, cur))
-        s.record("blur_dog_max", "sift3d_tpu_torch/csrc/blur.cu",
-                 "sift3d_tpu/ops/blur_kernel.py:337",
-                 float((dog - ref).abs().max()), ms, pms, bk.dog_launches,
-                 bound(12 * prev.numel(), 2 * prev.numel()))
+            bk.blur_yz_dog(tmp, wy, loy, wz, loz, cur, prev, dg, m)
+            cr, dr, mr = bk.blur_yz_dog_plain(xr, wy, loy, wz, loz, prev)
+            assert torch.equal(cur, cr), f"level {i}: y/z pass not bit-exact"
+            assert torch.equal(cur, gpyr[0][i]), f"level {i} of the chain"
+            if i:
+                assert torch.equal(dog, dr) and torch.equal(dm[0], mr), i
+                assert torch.equal(dog, dogs[0][i - 1]), i
+            err = max(err, float((tmp - xr).abs().max()),
+                      float((cur - cr).abs().max()))
+            # The x pass's library yardstick: F.conv3d with the band as a
+            # (B,1,1) filter. It computes the same function on the rows
+            # whose band is the interior one (conv_diagonals changes the
+            # weights near the clipped edges); padding is symmetric, so
+            # the row past the end is dropped.
+            n = x.shape[0]
+            w = wx[n // 2].reshape(1, 1, bx, 1, 1).contiguous()
+
+            def library():
+                return F.conv3d(src[None, None], w,
+                                padding=(-lox, 0, 0))[0, 0].narrow(0, 0, n)
+            rows = torch.nonzero((wx == wx[n // 2]).all(dim=1))[:, 0]
+            lib_err = max(lib_err, float((library() - xr).abs()
+                                         .index_select(0, rows).max()))
+            xms = cuda_ms(torch, lambda: bk.blur_x(src, wx, lox, tmp),
+                          inner=KERNEL_INNER)
+            yzms = cuda_ms(torch, lambda: bk.blur_yz_dog(
+                tmp, wy, loy, wz, loz, cur, prev, dg, m), inner=KERNEL_INNER)
+            lvms = cuda_ms(torch, lambda: bk.blur_level(src, diags, tmp, cur,
+                                                        dg, m),
+                           inner=KERNEL_INNER)
+            pxms = cuda_ms(torch, lambda: bk.blur_x_plain(src, wx, lox))
+            pyzms = cuda_ms(torch, lambda: bk.blur_yz_dog_plain(
+                xr, wy, loy, wz, loz, prev))
+            lms = cuda_ms(torch, library, inner=KERNEL_INNER)
+            lib_ms += lms / plan.num_gpyr_levels
+            # Bytes: each input read once, each output written once; the
+            # level as one function reads src and writes the level and
+            # the DoG. Ops: a multiply and an add per tap, the DoG's
+            # subtract, absolute value and max.
+            dogv = 1 if i else 0
+            bxb = (8 * N, 2 * bx * N)
+            yzb = ((8 + 8 * dogv) * N, (2 * (by + bz) + 3 * dogv) * N)
+            lvb = bound((8 + 4 * dogv) * N,
+                        (2 * (bx + by + bz) + 3 * dogv) * N)
+            for key, b, ms, pms in (("blur_x", bxb, xms, pxms),
+                                    ("blur_yz_dog", yzb, yzms, pyzms)):
+                for j, v in enumerate((b[0], b[1], ms, pms)):
+                    sums[key][j] += v / plan.num_gpyr_levels
+            print(f"       level {i} (bands {bx}/{by}/{bz}): x {xms:.4f} ms "
+                  f"(bound {bound(*bxb)[0]:.4f}), y/z{'+DoG' * dogv} "
+                  f"{yzms:.4f} ms (bound {bound(*yzb)[0]:.4f}), level "
+                  f"{lvms:.4f} ms (bound as one function {lvb[0]:.4f}); "
+                  f"plain x {pxms:.4f}, plain y/z {pyzms:.4f}, conv3d x "
+                  f"{lms:.4f} ms", flush=True)
+        print(f"       conv3d vs x pass away from the clipped edges: max abs "
+              f"diff {lib_err:.3g}", flush=True)
+        assert lib_err <= 1e-6
+        # Per kernel: the mean over the six levels of octave 0.
+        for key, counter, lib in (("blur_x", bk.blur_x_launches, lib_ms),
+                                  ("blur_yz_dog", bk.blur_yz_dog_launches,
+                                   None)):
+            nbytes, ops, ms, pms = sums[key]
+            s.record(key, "sift3d_tpu_torch/csrc/blur.cu",
+                     "sift3d_tpu/ops/blur_kernel.py:337", err, ms, pms,
+                     counter, bound(nbytes, ops), lib)
 
     def extrema_phase():
         dog = st_["dog"]
         thr = (torch.tensor(params.peak_thresh, device=dev)
                * st_["dogmax"][1:1 + nl]).contiguous()
+        found = {}
         for cuboid in (False, True):
-            got = ek.extrema_mask(dog, thr, cuboid)
-            ref = ek.extrema_mask_plain(dog, thr, cuboid)
-            assert torch.equal(got, ref), f"cuboid={cuboid} mask differs"
-        ms = cuda_ms(torch, lambda: ek.extrema_mask(dog, thr))
-        pms = cuda_ms(torch, lambda: ek.extrema_mask_plain(dog, thr))
-        vox = dog[0].numel()
-        s.record("extrema_mask", "sift3d_tpu_torch/csrc/extrema.cu",
+            rk, rc = ek.extrema_candidates_plain(dog, thr, cuboid)
+            rk = torch.sort(rk).values
+            found[cuboid] = rk.numel()
+            for cap in (None, 1):   # 1: too small, so the kernel runs again
+                n0 = ek.launches
+                keys, counts = ek.extrema_candidates(dog, thr, cuboid, cap)
+                runs = ek.launches - n0
+                assert runs == (2 if cap == 1 and rk.numel() > 1 else 1)
+                assert torch.equal(torch.sort(keys).values, rk), (cuboid, cap)
+                assert torch.equal(counts, rc), (cuboid, cap)
+        print(f"       candidates identical to the plain route: "
+              f"{found[False]} (face), {found[True]} (cuboid); also at "
+              f"capacity 1, through the second launch", flush=True)
+        # The kernel alone, launched into fixed buffers (its count is not
+        # read); then the wrapper, which reads the count (a host sync); then
+        # the whole stage as detect.py runs it.
+        _, nx, ny, nz = dog.shape
+        keys = torch.empty(ek.default_capacity(dog.shape), dtype=torch.int64,
+                           device=dev)
+        counts = torch.zeros(1 + nl, dtype=torch.int64, device=dev)
+
+        def kernel():
+            _build.call("s3d_extrema_candidates", dog.data_ptr(),
+                        thr.data_ptr(), keys.data_ptr(), counts.data_ptr(),
+                        keys.numel(), nl, nx, ny, nz, 0,
+                        _build.stream_ptr(dog))
+        ms = cuda_ms(torch, kernel, inner=KERNEL_INNER)
+        wms = cuda_ms(torch, lambda: ek.extrema_candidates(dog, thr))
+        pms = cuda_ms(torch, lambda: ek.extrema_candidates_plain(dog, thr))
+        stage = cuda_ms(torch, lambda: detect_extrema_octave(
+            dog, st_["dogmax"], params))
+        print(f"       extrema_candidates with the count read {wms:.4f} ms; "
+              f"detect_extrema_octave (threshold, kernel, count, sort, "
+              f"decode, strength) {stage:.4f} ms", flush=True)
+        cen = dog[1:1 + nl]
+        t = thr.reshape(nl, 1, 1, 1)
+        past = ((cen > t) | (cen < -t)).reshape(nl, -1).sum(dim=1)
+        passing = int(past.sum())
+        # Bytes, for this run's data: the keypoint levels' DoG read once;
+        # for a voxel past the threshold of the first (last) keypoint
+        # level, the centre of DoG level 0 (nl + 1), which no keypoint
+        # level holds; the keys and counts written. Ops: two threshold
+        # compares per voxel of a keypoint level, two compares per
+        # neighbour where the threshold passes.
+        outer = int(past[0]) + int(past[-1])
+        print(f"       {passing} of {cen.numel()} keypoint-level voxels past "
+              f"the threshold", flush=True)
+        s.record("extrema_candidates", "sift3d_tpu_torch/csrc/extrema.cu",
                  "sift3d_tpu/ops/extrema_kernel.py:384", 0.0, ms, pms,
-                 ek.launches, bound(4 * dog.numel() + nl * vox,
-                                    18 * nl * vox))
+                 ek.launches, bound(4 * cen.numel() + 4 * outer
+                                    + 8 * found[False] + 8 * (1 + nl),
+                                    2 * cen.numel() + 16 * passing))
 
     def box_voxels(coords, sd, sig_fctr, rad_fctr, units, dims):
         """Per keypoint, the voxels of its loop-bound box and of its
@@ -299,7 +367,7 @@ def main() -> int:
         assert rerr <= 1e-5, rerr
         print(f"       orient: K={K} candidates, {int(acc.sum())} accepted "
               f"(predicates identical), R max err {rerr:.3g}", flush=True)
-        ms = cuda_ms(torch, lambda: ok.orient(*args))
+        ms = cuda_ms(torch, lambda: ok.orient(*args), inner=KERNEL_INNER)
         pms = cuda_ms(torch, lambda: ok.orient_plain(*args))
         box, sphere = box_voxels(cand.coords, sd, params.ori_sig_fctr,
                                  params.ori_rad_fctr, plan.units,
@@ -364,7 +432,7 @@ def main() -> int:
               f"{[float(r.max()) for r in rel]}, spread over 3 runs "
               f"{spread:.3g}", flush=True)
         assert all(bool((r <= 1e-5).all()) for r in rel)
-        ms = cuda_ms(torch, lambda: dk.desc_fused(*args))
+        ms = cuda_ms(torch, lambda: dk.desc_fused(*args), inner=KERNEL_INNER)
         pms = cuda_ms(torch, lambda: dk.desc_fused_plain(*args), reps=5)
         s.record("desc_fused", "sift3d_tpu_torch/csrc/desc.cu",
                  "sift3d_tpu/ops/desc_kernel.py:304",
@@ -372,16 +440,19 @@ def main() -> int:
                  dk.launches,
                  bound(4 * box + 4 * ref.numel(), DESC_OPS_PER_VOXEL * work))
 
-    counters = [(bk, "axis_pass_launches", "blur_axis_pass"),
-                (bk, "dog_launches", "blur_dog_max"),
-                (ek, "launches", "extrema_mask"),
+    counters = [(bk, "blur_x_launches", "blur_x"),
+                (bk, "blur_yz_dog_launches", "blur_yz_dog"),
+                (ek, "launches", "extrema_candidates"),
                 (ok, "launches", "orient"),
                 (dk, "launches", "desc_fused")]
 
-    def main_path(cell, reps):
+    def main_path(cell):
+        _, size, units, reps = CELLS[cell]
         g = np.load(GOLDENS[cell])
-        assert int(g["size"]) == SIZE
-        vol = vols[cell]
+        assert int(g["size"]) == size
+        if "units" in g.files:
+            assert tuple(g["units"]) == units, g["units"]
+        vol = st.Volume.from_array(vols[cell], units)
         det = st.SIFT3D(params, device="cuda")
         for mod, attr, _ in counters:
             setattr(mod, attr, 0)
@@ -392,13 +463,17 @@ def main() -> int:
         launches = {name: getattr(mod, attr) for mod, attr, name in counters}
         # The eigensolver runs inside s3d_orient, never on its own.
         assert ok.eigh_launches == 0, ok.eigh_launches
-        if cell == "sparse":
-            for name, n in launches.items():
-                s.kernels.setdefault(name, {"name": name})["launches"] = n
         print(f"       launches on the main path ({cell}): {launches}",
               flush=True)
         missing = [name for name, n in launches.items() if n == 0]
         assert not missing, f"not launched on the main path: {missing}"
+        if cell == "sparse256":
+            for name, n in launches.items():
+                s.kernels.setdefault(name, {"name": name})["launches"] = n
+            # Two blur launches per blurred level (6 + 5 x 5), one extrema
+            # launch per octave.
+            assert (launches["blur_x"], launches["blur_yz_dog"],
+                    launches["extrema_candidates"]) == (31, 31, 6), launches
 
         assert len(kp) == len(g["coords"]), (len(kp), len(g["coords"]))
         for f in ("coords", "octave", "level", "sd"):
@@ -445,22 +520,21 @@ def main() -> int:
             torch.cuda.synchronize()
             if i:
                 walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"       detect + describe {SIZE}^3 {cell}, {len(kp)} "
+        print(f"       detect + describe {cell} (units {units}), {len(kp)} "
               f"keypoints: median {statistics.median(walls):.2f} ms wall "
               f"over {reps} runs (min {min(walls):.2f}, max "
               f"{max(walls):.2f}) on {card}", flush=True)
 
-    s.phase("blur axis pass vs plain (bit-exact)", blur_phase)
-    s.phase("blur dog + max|DoG| vs plain (bit-exact)", dog_phase)
-    s.phase("extrema mask vs plain (identical)", extrema_phase)
+    s.phase("blur x and y/z + DoG kernels vs plain, six levels "
+            "(bit-exact)", blur_phase)
+    s.phase("extrema candidates vs plain route (identical)", extrema_phase)
     s.phase("orientation kernel vs plain (predicates identical, rel 1e-5)",
             ori_phase)
     s.phase("eigh3x3 kernel vs plain (bit-identical)", eigh_phase)
     s.phase("descriptor kernel vs plain (rel-L2 1e-5)", desc_phase)
-    s.phase("main path: detect + describe, sparse, vs JAX golden",
-            lambda: main_path("sparse", REPS))
-    s.phase("main path: detect + describe, dense, vs JAX golden",
-            lambda: main_path("dense", 3))
+    for cell in CELLS:
+        s.phase(f"main path: detect + describe, {cell}, vs JAX golden",
+                lambda cell=cell: main_path(cell))
 
     print(json.dumps({"kernels": list(s.kernels.values())}), flush=True)
     if s.failures:

@@ -9,8 +9,9 @@ coordinates at octave resolution and strength |DoG| (sift.c:851-864), in
 the reference's scan order: level, then z, y, x (PYR_LOOP with s inner,
 sift.c:814; SIFT3D_IM_LOOP_LIMITED_START, immacros.h:78-82).
 
-Shapes are dynamic here: the mask is compacted with ``nonzero`` and a sort
-on the (level, z, y, x) key, with no fixed candidate capacity.
+Shapes are dynamic here: the stencil gives every candidate's (level, z, y,
+x) key (ops.extrema_kernel), and a sort on the key puts them in scan
+order.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from .ops.extrema_kernel import extrema_mask
+from .ops.extrema_kernel import extrema_candidates
 from .params import DetectorParams
 
 
@@ -38,15 +39,14 @@ def detect_extrema_octave(dog_oct: torch.Tensor, dogmax: torch.Tensor,
     dog_oct f32[num_dog_levels, nx, ny, nz]; dogmax f32[num_dog_levels]
     the per-level max |DoG| (from the pyramid builder)."""
     Ld, nx, ny, nz = dog_oct.shape
-    nl = Ld - 2
     thr = torch.tensor(params.peak_thresh, dtype=torch.float32,
                        device=dog_oct.device) * dogmax[1:Ld - 1]
-    mask = extrema_mask(dog_oct, thr.contiguous(), params.cuboid_extrema)
-    counts = mask.reshape(nl, -1).sum(dim=1)
-    lvl, xx, yy, zz = torch.nonzero(mask, as_tuple=True)
-    key = ((lvl * nz + zz) * ny + yy) * nx + xx
-    order = torch.argsort(key)
-    lvl, xx, yy, zz = lvl[order], xx[order], yy[order], zz[order]
+    keys, counts = extrema_candidates(dog_oct, thr.contiguous(),
+                                      params.cuboid_extrema)
+    keys = torch.sort(keys).values
+    xx, r = keys % nx, keys // nx
+    yy, r = r % ny, r // ny
+    zz, lvl = r % nz, r // nz
     strength = dog_oct[1 + lvl, xx, yy, zz].abs()
     return OctaveCandidates(torch.stack([xx, yy, zz], dim=-1), lvl,
                             strength, counts)

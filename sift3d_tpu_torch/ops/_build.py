@@ -35,9 +35,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _I64 = ctypes.c_int64
 # argtypes of every entry point; each returns a cudaError_t as int.
 _SIGNATURES = {
-    "s3d_blur_axis_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "s3d_dog_max": (_P, _P, _P, _P, _I64, _P),
-    "s3d_extrema_mask": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "s3d_blur_x": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "s3d_blur_yz_dog": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _P),
+    "s3d_extrema_candidates": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+                               _P),
     "s3d_orient": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
     "s3d_eigh3x3": (_P, _P, _P, _I64, _P),

@@ -1,4 +1,4 @@
-"""Gaussian-pyramid octave builder: banded axis passes + DoG.
+"""Gaussian-pyramid octave builder: banded x, y, z passes + DoG.
 
 Replaces the TPU kernel ``sift3d_tpu/ops/blur_kernel.py:337 chain_octave``
 (its ``_chain_kernel``/``_copy_kernel`` pallas_calls). One octave holds
@@ -11,20 +11,30 @@ filters.conv_diagonals. Then ``dog[l] = gpyr[l] - gpyr[l + 1]`` (build_dog,
 sift.c:713-732) and the per-level max |DoG|, the extrema threshold input
 (sift.c:821-829).
 
-CUDA kernels (csrc/blur.cu):
- - ``s3d_blur_axis_pass``: one thread per output voxel, the band summed in
-   ascending k with separate round-to-nearest multiplies and adds, the
-   order of the JAX reference (pyramid._diag_pass); out-of-range reads are
-   skipped (their weight is zero). Launched 3 times per level.
- - ``s3d_dog_max``: ``prev - cur`` and a block max of |DoG| folded into
-   the level's slot with an integer atomicMax on the float's bits (exact
-   and order-free for non-negative floats).
+CUDA kernels (csrc/blur.cu), two launches per level:
+ - ``s3d_blur_x``: the x pass. A block owns a tile of 256 (y, z) columns
+   and ``tx`` rows of x; the ``tx + Bx - 1`` input rows it needs reach
+   shared memory by cp.async.
+ - ``s3d_blur_yz_dog``: a ``ty x tz`` tile of ``xs`` consecutive x-planes
+   of the x output, with its y and z halo, in shared memory; the y pass
+   into shared memory (transposed), the z pass, then the level, ``prev -
+   cur`` and the block's max |DoG| folded into the level's slot with an
+   integer atomicMax on the float's bits (exact and order-free for
+   non-negative floats). The first level of octave 0 runs it without the
+   DoG.
+Each thread of a pass holds four outputs along the band, so a value read
+from shared memory serves four taps, against one float4 of skewed weights;
+each band term is still a separate round-to-nearest multiply and add, k
+ascending, the order of the JAX reference (pyramid._diag_pass), so the
+kernels equal the plain versions bit for bit (for finite inputs: a skewed
+weight of zero adds a zero product). ``x_tile`` and ``yz_tile`` pick the
+tiles from the bands and the dims.
 
-Bound on the H100: device-memory bandwidth. A level costs three reads and
-three writes of the volume for the passes plus two reads and a write for
-the DoG (each pass reads its neighbors through L1/L2, coalesced along z).
-Fusing the three passes and the DoG through shared-memory tiles, one read
-and two writes per level, is later work.
+Bound on the H100: device-memory bandwidth. The x pass reads and writes
+the volume once, the y/z pass reads two volumes and writes two: 6 volumes
+per level, where one kernel per level could move 3 (read the previous
+level, write the level and the DoG), but its x halo does not fit in shared
+memory at the widest bands (34 taps at 0.5 mm voxels).
 
 On a CPU tensor every wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises.
@@ -40,8 +50,14 @@ import torch.nn.functional as F
 from . import _build
 
 # Kernel launches on CUDA tensors, per kernel (chip_smoke.py reads them).
-axis_pass_launches = 0
-dog_launches = 0
+blur_x_launches = 0
+blur_yz_dog_launches = 0
+
+X_WIDTH = 256            # csrc/blur.cu kXWidth: (y, z) columns of an x tile
+BLOCK = 4                # csrc/blur.cu kBlock: tiles are multiples of it
+SMEM_TARGET = 64 * 1024  # tiles shrink until they fit (occupancy)
+SMEM_MAX = 227 * 1024    # the most a block may use on the H100
+SMS = 132                # the H100's streaming multiprocessors
 
 
 def axis_pass_plain(vol: torch.Tensor, wd: torch.Tensor, lo: int,
@@ -61,64 +77,168 @@ def axis_pass_plain(vol: torch.Tensor, wd: torch.Tensor, lo: int,
     return out.movedim(-1, axis).contiguous()
 
 
-def axis_pass(src: torch.Tensor, wd: torch.Tensor, lo: int, axis: int,
-              out: torch.Tensor) -> torch.Tensor:
-    """out = one banded pass of src f32[nx, ny, nz] along `axis`, with
-    band weights wd f32[n_axis, B]."""
-    global axis_pass_launches
-    if src.device.type == "cpu":
-        return out.copy_(axis_pass_plain(src, wd, lo, axis))
-    nx, ny, nz = src.shape
-    _build.check_cuda("axis_pass src", src, torch.float32)
-    _build.check_cuda("axis_pass out", out, torch.float32, src.shape)
-    _build.check_cuda("axis_pass wd", wd, torch.float32,
-                      (src.shape[axis], wd.shape[1]))
-    _build.call("s3d_blur_axis_pass", src.data_ptr(), out.data_ptr(),
-                wd.data_ptr(), wd.shape[1], lo, nx, ny, nz, axis,
-                _build.stream_ptr(src))
-    axis_pass_launches += 1
-    return out
-
-
 def dog_max_plain(prev: torch.Tensor, cur: torch.Tensor):
     dog = prev - cur
     return dog, dog.abs().max()
 
 
-def dog_max(prev: torch.Tensor, cur: torch.Tensor, dog_out: torch.Tensor,
-            dmax_out: torch.Tensor) -> None:
-    """dog_out = prev - cur; dmax_out (f32[1], zero on entry) = max |DoG|."""
-    global dog_launches
-    if prev.device.type == "cpu":
-        dog, m = dog_max_plain(prev, cur)
-        dog_out.copy_(dog)
-        dmax_out.copy_(m.reshape(1))
-        return
-    for name, t in (("prev", prev), ("cur", cur), ("dog", dog_out)):
-        _build.check_cuda(f"dog_max {name}", t, torch.float32, prev.shape)
-    _build.check_cuda("dog_max dmax", dmax_out, torch.float32, (1,))
-    _build.call("s3d_dog_max", prev.data_ptr(), cur.data_ptr(),
-                dog_out.data_ptr(), dmax_out.data_ptr(), prev.numel(),
-                _build.stream_ptr(prev))
-    dog_launches += 1
+def x_smem_bytes(tx: int, bx: int) -> int:
+    """Shared memory of an x tile: its skewed weight rows and its input
+    rows."""
+    return 4 * ((bx + BLOCK - 1) * tx + (tx + bx - 1) * X_WIDTH)
+
+
+def yz_smem_bytes(ty: int, tz: int, by: int, bz: int) -> int:
+    """Shared memory of a y/z tile: the skewed y and z weight rows, the
+    z pass, the y pass, the haloed x output."""
+    ca = tz + bz - 1
+    return 4 * ((by + BLOCK - 1) * ty + (bz + BLOCK - 1) * tz
+                + ty * (tz + 4) + _round_up(ca * (ty + 1), 4)
+                + (ty + by - 1) * _round_up(ca + 3, 4))
+
+
+def _halve_to_fit(size: int, smem) -> int:
+    """The largest of size, size / 2, ... (multiples of BLOCK) whose
+    tile fits in SMEM_TARGET bytes; refused if BLOCK rows exceed
+    SMEM_MAX."""
+    while size > BLOCK and smem(size) > SMEM_TARGET:
+        size = max(BLOCK, size // 2 // BLOCK * BLOCK)
+    if smem(size) > SMEM_MAX:
+        raise ValueError(f"blur band too wide for shared memory: "
+                         f"{smem(size)} bytes at a tile of {size}")
+    return size
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def x_tile(nx: int, bx: int) -> tuple[int, int]:
+    """(tx, shared-memory bytes) of the x pass over nx rows with band Bx:
+    16 rows (fewer for a short axis, a multiple of 4), halved until the
+    tile fits in 64 KB, so several blocks share an SM. A band so wide
+    that 4 rows exceed the 227 KB a block may use is refused."""
+    tx = _halve_to_fit(min(16, _round_up(nx, BLOCK)),
+                       lambda t: x_smem_bytes(t, bx))
+    return tx, x_smem_bytes(tx, bx)
+
+
+@functools.lru_cache(maxsize=None)
+def yz_tile(nx: int, ny: int, nz: int, by: int,
+            bz: int) -> tuple[int, int, int, int]:
+    """(ty, tz, xs, shared-memory bytes) of the y/z pass with bands
+    (By, Bz): tz is 64 (32 where nz <= 32, a warp's width), ty 32 rows
+    (fewer for a short axis, a multiple of 4), halved until the tile fits
+    in 64 KB; refused as x_tile. A block takes xs = 4 x-planes (fewer
+    where the grid would leave SMs idle), staging the weights once."""
+    tz = 64 if nz > 32 else 32
+    ty = _halve_to_fit(min(32, _round_up(ny, BLOCK)),
+                       lambda t: yz_smem_bytes(t, tz, by, bz))
+    tiles = -(-ny // ty) * -(-nz // tz)
+    xs = 4
+    while xs > 1 and tiles * -(-nx // xs) < 2 * SMS:
+        xs //= 2
+    return ty, tz, xs, yz_smem_bytes(ty, tz, by, bz)
+
+
+def _check_dims(name: str, shape) -> None:
+    """Grid limits (x-planes and y tiles) and 32-bit offsets in a plane."""
+    nx, ny, nz = shape
+    if max(nx, ny) > 65535 or ny * nz >= 2 ** 31:
+        raise ValueError(f"{name}: volume too large {tuple(shape)}")
+
+
+def blur_x_plain(src: torch.Tensor, wx: torch.Tensor, lo: int):
+    return axis_pass_plain(src, wx, lo, 0)
+
+
+def blur_x(src: torch.Tensor, wx: torch.Tensor, lo: int,
+           out: torch.Tensor) -> torch.Tensor:
+    """out = the banded x pass of src f32[nx, ny, nz], band weights
+    wx f32[nx, Bx]."""
+    global blur_x_launches
+    if src.device.type == "cpu":
+        return out.copy_(blur_x_plain(src, wx, lo))
+    nx, ny, nz = src.shape
+    _build.check_cuda("blur_x src", src, torch.float32)
+    _build.check_cuda("blur_x out", out, torch.float32, src.shape)
+    _build.check_cuda("blur_x wx", wx, torch.float32, (nx, wx.shape[1]))
+    _check_dims("blur_x", src.shape)
+    tx, smem = x_tile(nx, wx.shape[1])
+    _build.call("s3d_blur_x", src.data_ptr(), out.data_ptr(), wx.data_ptr(),
+                wx.shape[1], lo, nx, ny, nz, tx, smem, _build.stream_ptr(src))
+    blur_x_launches += 1
+    return out
+
+
+def blur_yz_dog_plain(src: torch.Tensor, wy: torch.Tensor, loy: int,
+                      wz: torch.Tensor, loz: int, prev=None):
+    """(cur, dog, max |dog|): the y and z passes of src, then the DoG
+    against prev; dog and max are None without prev."""
+    cur = axis_pass_plain(axis_pass_plain(src, wy, loy, 1), wz, loz, 2)
+    if prev is None:
+        return cur, None, None
+    return (cur,) + dog_max_plain(prev, cur)
+
+
+def blur_yz_dog(src: torch.Tensor, wy: torch.Tensor, loy: int,
+                wz: torch.Tensor, loz: int, cur: torch.Tensor,
+                prev: torch.Tensor | None = None,
+                dog: torch.Tensor | None = None,
+                dmax: torch.Tensor | None = None) -> torch.Tensor:
+    """cur = the y then z passes of src f32[nx, ny, nz] (the x output),
+    band weights wy f32[ny, By], wz f32[nz, Bz]. With prev:
+    dog = prev - cur and dmax (f32[1], zero on entry) = max |dog|."""
+    global blur_yz_dog_launches
+    if src.device.type == "cpu":
+        c, d, m = blur_yz_dog_plain(src, wy, loy, wz, loz, prev)
+        cur.copy_(c)
+        if prev is not None:
+            dog.copy_(d)
+            dmax.copy_(m.reshape(1))
+        return cur
+    nx, ny, nz = src.shape
+    _build.check_cuda("blur_yz_dog src", src, torch.float32)
+    _build.check_cuda("blur_yz_dog cur", cur, torch.float32, src.shape)
+    _build.check_cuda("blur_yz_dog wy", wy, torch.float32, (ny, wy.shape[1]))
+    _build.check_cuda("blur_yz_dog wz", wz, torch.float32, (nz, wz.shape[1]))
+    if len({prev is None, dog is None, dmax is None}) != 1:
+        raise ValueError("blur_yz_dog: prev, dog and dmax go together")
+    if prev is not None:
+        _build.check_cuda("blur_yz_dog prev", prev, torch.float32, src.shape)
+        _build.check_cuda("blur_yz_dog dog", dog, torch.float32, src.shape)
+        _build.check_cuda("blur_yz_dog dmax", dmax, torch.float32, (1,))
+    _check_dims("blur_yz_dog", src.shape)
+    ty, tz, xs, smem = yz_tile(nx, ny, nz, wy.shape[1], wz.shape[1])
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    _build.call("s3d_blur_yz_dog", src.data_ptr(), ptr(prev), cur.data_ptr(),
+                ptr(dog), ptr(dmax), wy.data_ptr(), wy.shape[1], loy,
+                wz.data_ptr(), wz.shape[1], loz, nx, ny, nz, ty, tz, xs,
+                smem, _build.stream_ptr(src))
+    blur_yz_dog_launches += 1
+    return cur
 
 
 @functools.lru_cache(maxsize=256)
 def _diags(plan, octave: int, level: int, device: torch.device):
     """Band weights of the blur that makes `level` of `octave` (level 0:
-    the first blur of octave 0), as tensors on `device`."""
+    the first blur of octave 0), as tensors on `device`:
+    ((wx, lox), (wy, loy), (wz, loz))."""
     taps = plan.first_taps if level == 0 else plan.level_taps[level]
     return tuple((torch.from_numpy(wd).to(device), lo)
                  for wd, lo in plan.conv_diags(octave, taps))
 
 
-def blur(vol: torch.Tensor, diags, out: torch.Tensor,
-         tmp: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """out = the separable banded blur of vol, x then y then z."""
+def blur_level(src: torch.Tensor, diags, tmp: torch.Tensor,
+               cur: torch.Tensor, dog=None, dmax=None) -> torch.Tensor:
+    """cur = the separable banded blur of src, x then y then z, through
+    tmp (the x output); with dog and dmax, also the DoG src - cur and its
+    max."""
     (wx, lox), (wy, loy), (wz, loz) = diags
-    axis_pass(vol, wx, lox, 0, tmp[0])
-    axis_pass(tmp[0], wy, loy, 1, tmp[1])
-    return axis_pass(tmp[1], wz, loz, 2, out)
+    blur_x(src, wx, lox, tmp)
+    return blur_yz_dog(tmp, wy, loy, wz, loz, cur,
+                       None if dog is None else src, dog, dmax)
 
 
 def chain_octave(src: torch.Tensor, plan, octave: int):
@@ -136,12 +256,12 @@ def chain_octave(src: torch.Tensor, plan, octave: int):
     dog = torch.empty((L - 1,) + tuple(dims), dtype=torch.float32,
                       device=dev)
     dogmax = torch.zeros(L - 1, dtype=torch.float32, device=dev)
-    tmp = (torch.empty_like(gpyr[0]), torch.empty_like(gpyr[0]))
+    tmp = torch.empty_like(gpyr[0])
     if octave == 0:
-        blur(src.contiguous(), _diags(plan, 0, 0, dev), gpyr[0], tmp)
+        blur_level(src.contiguous(), _diags(plan, 0, 0, dev), tmp, gpyr[0])
     else:
         gpyr[0].copy_(src)
     for i in range(1, L):
-        blur(gpyr[i - 1], _diags(plan, octave, i, dev), gpyr[i], tmp)
-        dog_max(gpyr[i - 1], gpyr[i], dog[i - 1], dogmax[i - 1:i])
+        blur_level(gpyr[i - 1], _diags(plan, octave, i, dev), tmp, gpyr[i],
+                   dog[i - 1], dogmax[i - 1:i])
     return gpyr, dog, dogmax

@@ -1,28 +1,36 @@
-"""DoG extrema stencil mask.
+"""DoG extrema stencil with the candidates compacted inside the kernel.
 
 Replaces the TPU kernel
-``sift3d_tpu/ops/extrema_kernel.py:384 extrema_mask_pallas``. For one
-octave's DoG stack dog f32[nl + 2, nx, ny, nz] and per-level thresholds
-thr f32[nl], it writes mask int8[nl, nx, ny, nz]: voxel (x, y, z) of
-keypoint level l (DoG level l + 1) is set when it lies in the interior
+``sift3d_tpu/ops/extrema_kernel.py:384 extrema_mask_pallas`` and the XLA
+compaction after it. For one octave's DoG stack dog f32[nl + 2, nx, ny,
+nz] and per-level thresholds thr f32[nl], voxel (x, y, z) of keypoint
+level l (DoG level l + 1) is a candidate when it lies in the interior
 [1, n-2]^3, |DoG| > thr[l] (as ``v > thr or v < -thr``), and the value is
 strictly greater, or strictly less, than every compared neighbor
 (detect_extrema, sift.c:735-871): the 6 face neighbors plus the centers of
 DoG levels l and l + 2 (sift.c:797-810), or the full 3x3x3 cube in all
-three levels under ``cuboid`` (80 neighbors, sift.c:761-796). The border is
-zero.
+three levels under ``cuboid`` (80 neighbors, sift.c:761-796).
 
-CUDA kernel (csrc/extrema.cu, ``s3d_extrema_mask``): one thread per voxel
-of [nl, nx, ny, nz], neighbors read straight from device memory.
+``extrema_candidates`` gives each candidate's key
+``((l * nz + z) * ny + y) * nx + x`` (the reference's scan order: level,
+then z, y, x) in no particular order, and the count per level.
 
-Bound on the H100: device-memory bandwidth — three DoG levels read per
-keypoint level (neighbors hit L1/L2) and one byte written per voxel. The
-compaction (nonzero + key sort) stays in torch, as it stayed in XLA on
-the TPU; fusing it into the stencil with a warp ballot and an atomic
-counter is later work.
+CUDA kernel (csrc/extrema.cu, ``s3d_extrema_candidates``): one launch per
+octave over chunks of the (y, z) planes of every keypoint level. A thread
+reads its voxels' own values, coalesced, and the neighbors only where the
+threshold passes (a few percent of the voxels); a warp ballot and one
+atomicAdd per warp write the keys into a buffer of fixed capacity. No mask
+reaches device memory. The wrapper reads the count (the octave's one host
+sync) and, if it exceeds the capacity, launches the kernel once more with
+the exact capacity.
 
-On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
-tensor it launches the kernel or raises.
+Bound on the H100: device-memory bandwidth, reading the keypoint levels'
+DoG once (the outer DoG levels only at the voxels that pass the
+threshold).
+
+On a CPU tensor the wrapper runs the plain PyTorch version (the mask,
+``nonzero`` and the keys); on a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ _CUBE_OFFSETS = [(dx, dy, dz)
 
 def extrema_mask_plain(dog: torch.Tensor, thr: torch.Tensor,
                        cuboid: bool = False) -> torch.Tensor:
-    """Plain version: shifted-slice comparisons over the interior (the
-    stencil of sift3d_tpu/detect.py:207-234)."""
+    """Candidate mask int8[nl, nx, ny, nz] by shifted-slice comparisons
+    over the interior (the stencil of sift3d_tpu/detect.py:207-234); the
+    border is zero."""
     Ld, nx, ny, nz = dog.shape
     nl = Ld - 2
 
@@ -71,22 +80,56 @@ def extrema_mask_plain(dog: torch.Tensor, thr: torch.Tensor,
     return mask
 
 
-def extrema_mask(dog: torch.Tensor, thr: torch.Tensor,
-                 cuboid: bool = False) -> torch.Tensor:
-    """Candidate mask int8[nl, nx, ny, nz] of one octave's DoG stack."""
-    global launches
+def extrema_candidates_plain(dog: torch.Tensor, thr: torch.Tensor,
+                             cuboid: bool = False):
+    """Plain version: (keys i64[N], counts i64[nl]) from the mask by
+    ``nonzero``."""
+    _, nx, ny, nz = dog.shape
+    mask = extrema_mask_plain(dog, thr, cuboid)
+    counts = mask.reshape(mask.shape[0], -1).sum(dim=1)
+    lvl, xx, yy, zz = torch.nonzero(mask, as_tuple=True)
+    return ((lvl * nz + zz) * ny + yy) * nx + xx, counts
+
+
+def default_capacity(shape) -> int:
+    """Key slots of the first launch: 1 in 1024 voxels of the keypoint
+    levels, at least 4096 (a 256^3 octave 0 of a dense volume has a few
+    thousand candidates)."""
+    Ld, nx, ny, nz = shape
+    return max(4096, (Ld - 2) * nx * ny * nz // 1024)
+
+
+def extrema_candidates(dog: torch.Tensor, thr: torch.Tensor,
+                       cuboid: bool = False, capacity: int | None = None):
+    """(keys i64[N] of every candidate, in no particular order; counts
+    i64[nl] per level) of one octave's DoG stack."""
     if dog.device.type == "cpu":
-        return extrema_mask_plain(dog, thr, cuboid)
+        return extrema_candidates_plain(dog, thr, cuboid)
     Ld, nx, ny, nz = dog.shape
     nl = Ld - 2
-    _build.check_cuda("extrema_mask dog", dog, torch.float32)
-    _build.check_cuda("extrema_mask thr", thr, torch.float32, (nl,))
+    _build.check_cuda("extrema_candidates dog", dog, torch.float32)
+    _build.check_cuda("extrema_candidates thr", thr, torch.float32, (nl,))
     if min(nx, ny, nz) < 3 or nl < 1:
-        raise ValueError(f"extrema_mask: DoG stack too small {dog.shape}")
-    mask = torch.empty((nl, nx, ny, nz), dtype=torch.int8,
-                       device=dog.device)
-    _build.call("s3d_extrema_mask", dog.data_ptr(), thr.data_ptr(),
-                mask.data_ptr(), nl, nx, ny, nz, int(cuboid),
-                _build.stream_ptr(dog))
-    launches += 1
-    return mask
+        raise ValueError(f"extrema_candidates: DoG stack too small "
+                         f"{tuple(dog.shape)}")
+    if ny * nz >= 2 ** 31:
+        raise ValueError("extrema_candidates: a (y, z) plane needs 64-bit "
+                         "offsets")
+    counts = torch.zeros(1 + nl, dtype=torch.int64, device=dog.device)
+
+    def launch(cap: int) -> torch.Tensor:
+        global launches
+        keys = torch.empty(max(cap, 1), dtype=torch.int64, device=dog.device)
+        _build.call("s3d_extrema_candidates", dog.data_ptr(), thr.data_ptr(),
+                    keys.data_ptr(), counts.data_ptr(), cap, nl, nx, ny, nz,
+                    int(cuboid), _build.stream_ptr(dog))
+        launches += 1
+        return keys
+
+    cap = default_capacity(dog.shape) if capacity is None else int(capacity)
+    keys = launch(cap)
+    n = int(counts[0])    # the octave's one host sync
+    if n > cap:           # once more, with a slot for every key
+        counts.zero_()
+        keys = launch(n)
+    return keys[:n], counts[1:]

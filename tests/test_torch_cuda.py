@@ -28,30 +28,66 @@ def _rand(shape, seed, dev):
         .to(dev)
 
 
-@pytest.mark.parametrize("shape, units", [((33, 20, 45), (1, 1, 1)),
-                                          ((16, 24, 13), (1, 1, 1.5))])
+@pytest.mark.parametrize("shape, units", [
+    ((33, 20, 45), (1, 1, 1)),
+    ((16, 24, 13), (1, 1, 1.5)),
+    ((40, 36, 44), (0.5, 0.5, 1.0)),    # 34-tap bands in x and y
+    ((48, 40, 36), (1, 1, 2.5)),
+    ((8, 8, 8), (1, 1, 1)),             # one octave, bands clipped by the dims
+])
 def test_blur_chain_bit_exact(dev, shape, units):
+    """Every octave of the pyramid from s3d_blur_x + s3d_blur_yz_dog
+    equals the plain chain bit for bit (levels, DoG, max |DoG|)."""
     from sift3d_tpu_torch.ops import blur_kernel as bk
     from sift3d_tpu_torch.params import DetectorParams
-    from sift3d_tpu_torch.pyramid import make_plan
+    from sift3d_tpu_torch.pyramid import build_gpyr_and_dog, make_plan
     plan = make_plan(shape, units, DetectorParams())
     x = _rand(shape, 1, dev)
-    n0 = bk.axis_pass_launches
-    gp, dog, dmax = bk.chain_octave(x, plan, 0)
-    assert bk.axis_pass_launches - n0 == 3 * plan.num_gpyr_levels
-    gc, dc, mc = bk.chain_octave(x.cpu(), plan, 0)
-    assert torch.equal(gp.cpu(), gc) and torch.equal(dog.cpu(), dc)
-    assert torch.equal(dmax.cpu(), mc)
+    n0 = (bk.blur_x_launches, bk.blur_yz_dog_launches)
+    got = build_gpyr_and_dog(x, plan)
+    L = plan.num_gpyr_levels
+    levels = L + (plan.num_octaves - 1) * (L - 1)
+    assert bk.blur_x_launches - n0[0] == levels
+    assert bk.blur_yz_dog_launches - n0[1] == levels
+    ref = build_gpyr_and_dog(x.cpu(), plan)
+    for o in range(plan.num_octaves):
+        for a, b in zip(got, ref):
+            assert torch.equal(a[o].cpu(), b[o]), o
+
+
+def _candidates(ek, dog, thr, cuboid, **kw):
+    keys, counts = ek.extrema_candidates(dog, thr, cuboid, **kw)
+    return torch.sort(keys).values.cpu(), counts.cpu()
 
 
 @pytest.mark.parametrize("cuboid", [False, True])
-@pytest.mark.parametrize("shape", [(3, 3, 3), (9, 30, 17)])
-def test_extrema_mask_identical(dev, shape, cuboid):
+@pytest.mark.parametrize("shape", [(3, 3, 3), (9, 30, 17), (21, 40, 70)])
+def test_extrema_candidates_identical(dev, shape, cuboid):
+    """Keys and per-level counts of s3d_extrema_candidates equal the plain
+    route (mask, nonzero, keys), also when the capacity is too small and
+    the kernel runs again with the exact one."""
     from sift3d_tpu_torch.ops import extrema_kernel as ek
     dog = _rand((5,) + shape, 2, dev)
     thr = torch.tensor([0.1, 0.2, 0.0], device=dev)
-    got = ek.extrema_mask(dog, thr, cuboid)
-    assert torch.equal(got, ek.extrema_mask_plain(dog, thr, cuboid))
+    rk, rc = ek.extrema_candidates_plain(dog.cpu(), thr.cpu(), cuboid)
+    rk = torch.sort(rk).values
+    n0 = ek.launches
+    keys, counts = _candidates(ek, dog, thr, cuboid)
+    fits = rk.numel() <= ek.default_capacity(dog.shape)
+    assert ek.launches - n0 == (1 if fits else 2)
+    assert torch.equal(keys, rk) and torch.equal(counts, rc)
+    if rk.numel() > 1:
+        n0 = ek.launches
+        keys, counts = _candidates(ek, dog, thr, cuboid, capacity=1)
+        assert ek.launches - n0 == 2
+        assert torch.equal(keys, rk) and torch.equal(counts, rc)
+
+
+def test_extrema_candidates_flat_dog(dev):
+    from sift3d_tpu_torch.ops import extrema_kernel as ek
+    dog = torch.zeros((5, 12, 12, 12), device=dev)
+    keys, counts = _candidates(ek, dog, torch.zeros(3, device=dev), False)
+    assert keys.shape == (0,) and torch.equal(counts, torch.zeros(3).long())
 
 
 def _octave_keypoints(dev, K, shape, nl, seed):
@@ -142,9 +178,10 @@ def test_wrappers_reject_bad_tensors(dev):
     from sift3d_tpu_torch.ops import extrema_kernel as ek
     dog = _rand((5, 8, 8, 8), 7, dev)
     with pytest.raises(ValueError):
-        ek.extrema_mask(dog.double(), torch.zeros(3, device=dev))
+        ek.extrema_candidates(dog.double(), torch.zeros(3, device=dev))
     with pytest.raises(ValueError):
-        ek.extrema_mask(dog.transpose(1, 3), torch.zeros(3, device=dev))
+        ek.extrema_candidates(dog.transpose(1, 3),
+                              torch.zeros(3, device=dev))
     from sift3d_tpu_torch.params import DetectorParams
     with pytest.raises(ValueError):     # int32 levels index
         dk.desc_fused(dog[:3], torch.zeros(2, dtype=torch.int32, device=dev),

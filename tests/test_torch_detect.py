@@ -1,4 +1,4 @@
-"""Port extrema mask and candidates vs the JAX reference."""
+"""Port extrema mask, candidate keys and candidates vs the JAX reference."""
 
 import dataclasses
 
@@ -12,7 +12,8 @@ import jax.numpy as jnp  # noqa: E402
 from sift3d_tpu.detect import detect_extrema_octave as jax_detect  # noqa
 from sift3d_tpu.params import DetectorParams as JaxParams  # noqa: E402
 from sift3d_tpu_torch.detect import detect_extrema_octave  # noqa: E402
-from sift3d_tpu_torch.ops.extrema_kernel import extrema_mask  # noqa: E402
+from sift3d_tpu_torch.ops.extrema_kernel import (  # noqa: E402
+    extrema_candidates, extrema_mask_plain)
 from sift3d_tpu_torch.params import from_jax_params  # noqa: E402
 
 
@@ -30,7 +31,8 @@ def test_mask_matches_pallas_kernel_interpret(cuboid):
         .astype(np.float32)
     ref = np.asarray(extrema_mask_pallas(jnp.asarray(dog), jnp.asarray(thr),
                                          cuboid=cuboid, interpret=True))
-    got = extrema_mask(torch.from_numpy(dog), torch.from_numpy(thr), cuboid)
+    got = extrema_mask_plain(torch.from_numpy(dog), torch.from_numpy(thr),
+                             cuboid)
     assert got.dtype == torch.int8
     assert ref.sum() > 0
     assert np.array_equal(got.numpy(), ref)
@@ -64,3 +66,34 @@ def test_no_candidates_on_flat_dog():
     dog = torch.zeros((5, 12, 12, 12))
     got = detect_extrema_octave(dog, torch.zeros(5), tp)
     assert got.coords.shape == (0, 3) and int(got.counts.sum()) == 0
+
+
+@pytest.mark.parametrize("cuboid", [False, True])
+def test_candidate_keys_match_jax_xla_path_odd_z(cuboid):
+    """The plain compaction (mask, nonzero, keys) sorted and decoded as
+    detect.py does it: counts, coords, level and strength identical to
+    the JAX XLA path, at a shape with odd dims and a low threshold (many
+    candidates on every level)."""
+    jp = JaxParams(extrema_impl="xla", cuboid_extrema=cuboid,
+                   peak_thresh=0.02)
+    tp = from_jax_params(dataclasses.asdict(jp))
+    shape = (19, 23, 27)
+    dog = _dog(shape, 12)
+    dogmax = np.abs(dog).max(axis=(1, 2, 3)).astype(np.float32)
+    thr = torch.from_numpy(np.float32(0.02) * dogmax[1:4])
+    keys, counts = extrema_candidates(torch.from_numpy(dog), thr, cuboid)
+    n = int(counts.sum())
+    assert keys.shape == (n,) and n > 3 * 20
+    assert int(torch.unique(keys).numel()) == n
+
+    got = detect_extrema_octave(torch.from_numpy(dog),
+                                torch.from_numpy(dogmax), tp)
+    ref = jax_detect(jnp.asarray(dog), jp, capacity=n + 8,
+                     dogmax=jnp.asarray(dogmax))
+    valid = np.asarray(ref.valid)
+    assert int(valid.sum()) == n
+    assert np.array_equal(got.counts.numpy(), np.asarray(ref.counts))
+    assert np.array_equal(got.coords.numpy(), np.asarray(ref.coords)[valid])
+    assert np.array_equal(got.level.numpy(), np.asarray(ref.level)[valid])
+    assert np.array_equal(got.strength.numpy(),
+                          np.asarray(ref.strength)[valid])

@@ -63,8 +63,9 @@ def test_tf32_disabled_at_import():
 
 
 @pytest.mark.parametrize("mod, fn, args", [
-    ("blur_kernel", "axis_pass", 4),
-    ("extrema_kernel", "extrema_mask", 2),
+    ("blur_kernel", "blur_x", 4),
+    ("blur_kernel", "blur_yz_dog", 9),
+    ("extrema_kernel", "extrema_candidates", 4),
     ("ori_kernel", "orient", 6),
     ("ori_kernel", "eigh3x3", 1),
     ("desc_kernel", "desc_fused", 8),

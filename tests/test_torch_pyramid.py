@@ -24,7 +24,8 @@ TP = from_jax_params(dataclasses.asdict(JP))
 
 CASES = [((48, 40, 36), (1.0, 1.0, 1.0)),
          ((48, 40, 36), (1.0, 1.0, 1.5)),
-         ((40, 36, 45), (1.0, 1.0, 1.0))]   # z not a multiple of 8
+         ((40, 36, 45), (1.0, 1.0, 1.0)),   # z not a multiple of 8
+         ((40, 36, 44), (0.5, 0.5, 1.0))]   # 34-tap bands in x and y
 
 
 @pytest.mark.parametrize("shape, units", CASES)
@@ -90,3 +91,37 @@ def test_axis_pass_plain_matches_dense_matrix():
         ref = np.moveaxis(np.tensordot(W, np.moveaxis(vol, axis, 0), 1),
                           0, axis)
         np.testing.assert_allclose(out, ref, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("dims, units", [
+    ((256, 256, 256), (1.0, 1.0, 1.0)),
+    ((192, 192, 192), (1.0, 1.0, 1.0)),
+    ((128, 128, 128), (1.0, 1.0, 2.5)),
+    ((128, 128, 128), (0.5, 0.5, 1.0)),
+])
+def test_blur_tiles_fit_shared_memory(dims, units):
+    """For every blur make_plan makes (every octave, every level), the
+    tile picker of the two blur kernels gives tiles the kernels take
+    (csrc/blur.cu), no larger than the octave allows, within the 227 KB a
+    block may use."""
+    from sift3d_tpu_torch.ops import blur_kernel as bk
+    plan = tpyr.make_plan(dims, units, TP)
+    widest = 0
+    for o in range(plan.num_octaves):
+        nx, ny, nz = plan.octave_dims[o]
+        for i in range(0 if o == 0 else 1, plan.num_gpyr_levels):
+            taps = plan.first_taps if i == 0 else plan.level_taps[i]
+            (wx, _), (wy, _), (wz, _) = plan.conv_diags(o, taps)
+            bx, by, bz = wx.shape[1], wy.shape[1], wz.shape[1]
+            widest = max(widest, bx, by, bz)
+            tx, xb = bk.x_tile(nx, bx)
+            ty, tz, xs, yzb = bk.yz_tile(nx, ny, nz, by, bz)
+            # Tiles are whole blocks of 4 rows, at most one block past the
+            # axis; tz is a warp or two.
+            for t, n in ((tx, nx), (ty, ny)):
+                assert t % 4 == 0 and 4 <= t < n + 4, (t, n)
+            assert ty <= 32 and tz in (32, 64) and tz < 2 * max(nz, 32)
+            assert 1 <= xs <= 4
+            assert xb == bk.x_smem_bytes(tx, bx) <= bk.SMEM_MAX
+            assert yzb == bk.yz_smem_bytes(ty, tz, by, bz) <= bk.SMEM_MAX
+    assert widest == (34 if units[0] == 0.5 else 18)
