@@ -4,14 +4,23 @@
 Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), holds each
 kernel against its plain PyTorch version at the 256^3 octave-0 shapes of
 the main path (the blur bit for bit on all six levels of octave 0, the
-extrema candidates identical, the orientation kernel's eigensolver bit for
-bit, alone), then runs the main path — SIFT3D(device="cuda"),
-detect_keypoints + extract_descriptors — on four bench phantoms: 256^3
-sparse and dense, 192^3 sparse, 128^3 sparse at 1 x 1 x 2.5 mm voxels. It
-checks that every kernel of the path launched in each run, and holds each
-result against its JAX golden file (tests/data/torch_golden_*.npz) to the
-reference bars (identical keypoint rows, stale strength within 1.2e-7
-relative, R within 1e-5, every descriptor within 1% relative L2).
+extrema candidates identical, the orientation and descriptor kernels at the
+candidates' integer centers and again at seeded fractional centers, as
+subvoxel refinement makes them, the eigensolver bit for bit, alone, on
+moments and on the candidates' DoG Hessians), then runs the main path —
+SIFT3D(device="cuda"), detect_keypoints + extract_descriptors — on four
+bench phantoms: 256^3 sparse and dense, 192^3 sparse, 128^3 sparse at 1 x
+1 x 2.5 mm voxels, and with refinement and edge rejection on 128^3 sparse
+(BASELINE config 2). It checks that every kernel of the path launched in
+each run, and holds each result against its JAX golden file
+(tests/data/torch_golden_*.npz) to the reference bars (identical keypoint
+rows, stale strength within 1.2e-7 relative, R within 1e-5, every
+descriptor within 1% relative L2; refined, coordinates within 1e-5, scales
+1e-6 relative, strengths exact). Last it registers the rotated and
+translated 192^3 pair of tools/bench_registration.py (BASELINE config 4),
+built on the card, with default and with refined parameters, against the
+JAX golden: the warped volume, the matches and inliers, and the affine's
+corner error against the truth and against JAX's.
 
 Prints the card (nvidia-smi name, power limit), versions and build time,
 one line per phase, a JSON line of per-kernel results (time, plain time,
@@ -34,13 +43,19 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# Main-path cells: (phantom, size, voxel units, runs timed).
-CELLS = {"sparse256": ("sparse", 256, (1.0, 1.0, 1.0), 7),
-         "dense256": ("dense", 256, (1.0, 1.0, 1.0), 3),
-         "sparse192": ("sparse", 192, (1.0, 1.0, 1.0), 3),
-         "aniso128": ("sparse", 128, (1.0, 1.0, 2.5), 3)}
+# BASELINE config 2: subvoxel refinement and Hessian edge rejection.
+REFINED = {"refine_subvoxel": True, "edge_thresh": 10.0}
+# Main-path cells: (phantom, size, voxel units, runs timed, extensions).
+CELLS = {"sparse256": ("sparse", 256, (1.0, 1.0, 1.0), 7, {}),
+         "dense256": ("dense", 256, (1.0, 1.0, 1.0), 3, {}),
+         "sparse192": ("sparse", 192, (1.0, 1.0, 1.0), 3, {}),
+         "aniso128": ("sparse", 128, (1.0, 1.0, 2.5), 3, {}),
+         "refine128": ("sparse", 128, (1.0, 1.0, 1.0), 3, REFINED)}
 GOLDENS = {cell: ROOT / "tests" / "data" / f"torch_golden_{cell}.npz"
            for cell in CELLS}
+# BASELINE config 4: registration of the 192^3 pair, two configurations.
+REG_GOLDEN = ROOT / "tests" / "data" / "torch_golden_register192.npz"
+REG_CONFIGS = {"default": {}, "refined": {"refine_subvoxel": True}}
 REPS = 7
 KERNEL_INNER = 20
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
@@ -51,6 +66,22 @@ PEAK_F32 = 67e12
 # gradient, weight, two 3x3 rotations, the 20-face test (~15 operations a
 # face) and 24 weighted adds.
 DESC_OPS_PER_VOXEL = 400
+# f32 operations of one 3x3 eigendecomposition: 18 Jacobi rotations of
+# ~68 operations (angle ~14, row, column and vector updates 54), the sort.
+EIGH_OPS = 1230
+
+
+def corner_error(A_est, A_true, n: int) -> float:
+    """Mean displacement in voxels between two affines over the corners of
+    an n^3 volume (tools/bench_registration.py affine_corner_error)."""
+    import numpy as np
+    if A_est is None:
+        return float("inf")
+    corners = np.array([[x, y, z, 1.0] for x in (0, n - 1)
+                        for y in (0, n - 1) for z in (0, n - 1)])
+    d = corners @ (np.asarray(A_est, np.float64)
+                   - np.asarray(A_true, np.float64)).T
+    return float(np.linalg.norm(d, axis=1).mean())
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -133,7 +164,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         die("no CUDA device: this smoke test runs the port on a GPU")
     needed = [ROOT / "sift3d_tpu_torch", ROOT / "bench.py",
-              *GOLDENS.values()]
+              *GOLDENS.values(), REG_GOLDEN]
     missing = [str(p.relative_to(ROOT)) for p in needed if not p.exists()]
     if missing:
         die(f"run from a checkout of the repository (missing {missing})")
@@ -154,6 +185,8 @@ def main() -> int:
     from sift3d_tpu_torch.phantoms import bench_volume
     from sift3d_tpu_torch.pyramid import (build_gpyr_and_dog, make_plan,
                                           scale_to_unit)
+    from sift3d_tpu_torch.refinement import (derivatives,
+                                             gather_neighbourhoods)
     assert "jax" not in sys.modules
     torch.backends.cudnn.allow_tf32 = False   # the conv3d yardstick
 
@@ -177,7 +210,7 @@ def main() -> int:
         if not np.array_equal(small, make(40)):
             die(f"bench_volume({cell!r}) differs from bench.py")
     vols = {cell: bench_volume(kind, size, dev).cpu().numpy()
-            for cell, (kind, size, _, _) in CELLS.items()}
+            for cell, (kind, size, *_) in CELLS.items()}
     vol_np = vols["sparse256"]
     plan = make_plan(vol_np.shape, (1.0, 1.0, 1.0), params)
     x = scale_to_unit(torch.from_numpy(vol_np).to(dev))
@@ -345,43 +378,72 @@ def main() -> int:
         sphere = 4.0 / 3.0 * np.pi * (rad / np.prod(units) ** (1 / 3)) ** 3
         return float(box.sum()), float(np.minimum(sphere, box).sum())
 
-    def ori_phase():
-        cand = detect_extrema_octave(st_["dog"], st_["dogmax"], params)
-        scales = torch.tensor(plan.scales[0][1:1 + nl], device=dev)
+    def orient_check(name, cand, sd, centers, sd_max, fractional):
+        """s3d_orient vs orient_plain on one octave's candidates, at their
+        integer or at fractional centers; timed."""
         levels = st_["gpyr"][1:1 + nl]
-        sd = scales[cand.level].contiguous()
         args = (levels, cand.level, cand.coords, sd, plan.units, params)
-        got = ok.orient(*args)
-        ref = ok.orient_plain(*args)
+        kw = dict(centers=centers, sd_max=sd_max, fractional=fractional)
+        got = ok.orient(*args, **kw)
+        ref = ok.orient_plain(*args, **kw)
         K = ref.A.shape[0]
         for a, b in ((got.A, ref.A), (got.vd, ref.vd)):
             err = (a - b).abs().reshape(K, -1).amax(1)
             scale = b.abs().reshape(K, -1).amax(1)
             assert bool((err <= 1e-5 * scale).all()), \
                 float((err / scale).max())
-        for name in ("accepted", "reject_grad", "reject_ratio",
+        for flag in ("accepted", "reject_grad", "reject_ratio",
                      "reject_corner"):
-            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+            assert torch.equal(getattr(got, flag), getattr(ref, flag)), flag
         acc = ref.accepted
         rerr = float((got.R[acc] - ref.R[acc]).abs().max())
         assert rerr <= 1e-5, rerr
-        print(f"       orient: K={K} candidates, {int(acc.sum())} accepted "
+        print(f"       {name}: K={K} candidates, {int(acc.sum())} accepted "
               f"(predicates identical), R max err {rerr:.3g}", flush=True)
-        ms = cuda_ms(torch, lambda: ok.orient(*args), inner=KERNEL_INNER)
-        pms = cuda_ms(torch, lambda: ok.orient_plain(*args))
-        box, sphere = box_voxels(cand.coords, sd, params.ori_sig_fctr,
+        ms = cuda_ms(torch, lambda: ok.orient(*args, **kw), inner=KERNEL_INNER)
+        pms = cuda_ms(torch, lambda: ok.orient_plain(*args, **kw))
+        box, sphere = box_voxels(centers, sd, params.ori_sig_fctr,
                                  params.ori_rad_fctr, plan.units,
                                  plan.octave_dims[0])
         # reads: each box voxel once (4 B); ops: the sphere test on every
         # box voxel, gradient + weight + 9 sums on the sphere's.
-        s.record("orient", "sift3d_tpu_torch/csrc/ori.cu",
+        s.record(name, "sift3d_tpu_torch/csrc/ori.cu",
                  "sift3d_tpu/ops/ori_kernel.py:167",
                  max(float((got.A - ref.A).abs().max()),
                      float((got.vd - ref.vd).abs().max()), rerr), ms, pms,
                  ok.launches, bound(4 * box + 76 * K, 11 * box + 40 * sphere))
-        st_.update(lvl=cand.level[acc], coords=cand.coords[acc],
+        return got, acc
+
+    def ori_phase():
+        cand = detect_extrema_octave(st_["dog"], st_["dogmax"], params)
+        scales = torch.tensor(plan.scales[0][1:1 + nl], device=dev)
+        sd = scales[cand.level].contiguous()
+        centers = cand.coords.float()
+        got, acc = orient_check("orient", cand, sd, centers,
+                                plan.scales[0][nl], False)
+        st_.update(cand=cand, lvl=cand.level[acc], centers=centers[acc],
                    R=got.R[acc].contiguous(), sd=sd[acc].contiguous(),
                    A=got.A.contiguous())
+
+    def ori_frac_phase():
+        # The same candidates at fractional centers and scales as
+        # refinement makes them: offsets in [-1, 1] voxel, scales times
+        # 2^(ds / nl) for ds in [-1, 1] (seeded).
+        cand = st_["cand"]
+        K = cand.level.numel()
+        g = np.random.default_rng(11)
+        off = torch.from_numpy(g.uniform(-1, 1, (K, 3)).astype(np.float32))
+        ds = torch.from_numpy(g.uniform(-1, 1, K).astype(np.float32))
+        scales = torch.tensor(plan.scales[0][1:1 + nl], device=dev)
+        sd = (scales[cand.level] * torch.exp2(ds.to(dev) / nl)).contiguous()
+        centers = (cand.coords.float() + off.to(dev)).contiguous()
+        sd_max = plan.scales[0][nl] * 2.0 ** (1.0 / nl)
+        got, acc = orient_check("orient_fractional", cand, sd, centers,
+                                sd_max, True)
+        st_["frac"] = dict(lvl=cand.level[acc],
+                           centers=centers[acc].contiguous(),
+                           R=got.R[acc].contiguous(),
+                           sd=sd[acc].contiguous(), sd_max=sd_max)
 
     def eigh_phase():
         g = np.random.default_rng(8)
@@ -389,7 +451,13 @@ def main() -> int:
         special = np.stack([np.eye(3), np.diag([1.0, 1.0, 2.0]),
                             np.zeros((3, 3)), np.full((3, 3), np.nan),
                             np.diag([np.inf, 1.0, 2.0])]).astype(np.float32)
-        A = torch.cat([st_["A"], torch.from_numpy(np.concatenate(
+        # The octave's candidates' DoG Hessians: what the edge test of
+        # refinement.py hands the kernel on the refined path.
+        cand = st_["cand"]
+        _, H = derivatives(gather_neighbourhoods(st_["dog"], cand.coords,
+                                                 cand.level)[:, 1])
+        H = H.contiguous()
+        A = torch.cat([st_["A"], H, torch.from_numpy(np.concatenate(
             [np.einsum("kij,klj->kil", M, M), special])).to(dev)])
         n0 = ok.eigh_launches
         w, V = ok.eigh3x3(A)
@@ -402,14 +470,29 @@ def main() -> int:
         assert bits_equal(w, wr) and bits_equal(V, Vr)
         print(f"       s3d_eigh3x3 bit-identical to eigh3x3_plain on "
               f"{A.shape[0]} matrices ({st_['A'].shape[0]} of the octave's "
-              f"moments, degenerate, zero, NaN and inf included)",
+              f"moments, {H.shape[0]} DoG Hessians, degenerate, zero, NaN "
+              f"and inf included)", flush=True)
+        # Timed on the Hessians, the shape the refined path gives it;
+        # torch.linalg.eigh (cuSOLVER) as the library call.
+        K = H.shape[0]
+        ms = cuda_ms(torch, lambda: ok.eigh3x3(H), inner=KERNEL_INNER)
+        pms = cuda_ms(torch, lambda: ok.eigh3x3_plain(H))
+        lms = cuda_ms(torch, lambda: torch.linalg.eigh(H), inner=KERNEL_INNER)
+        wl = torch.linalg.eigh(H).eigenvalues
+        wk = ok.eigh3x3(H)[0]
+        print(f"       torch.linalg.eigh vs s3d_eigh3x3 eigenvalues on the "
+              f"Hessians: max abs diff {float((wl - wk).abs().max()):.3g}",
               flush=True)
+        s.record("eigh3x3", "sift3d_tpu_torch/csrc/ori.cu",
+                 "sift3d_tpu/orientation.py:110", 0.0, ms, pms,
+                 ok.eigh_launches, bound(84 * K, EIGH_OPS * K), lms)
 
-    def desc_phase():
+    def desc_check(name, lvl, centers, R, sd, sd_max, fractional):
+        """s3d_desc_fused vs prep_windows + desc_hist_plain, 3 runs;
+        timed."""
         levels = st_["gpyr"][1:1 + nl]
-        centers = st_["coords"].float()
-        args = (levels, st_["lvl"], centers, st_["R"], st_["sd"],
-                plan.units, params, plan.scales[0][nl])
+        args = (levels, lvl, centers, R, sd, plan.units, params, sd_max,
+                fractional)
         ref = dk.desc_fused_plain(*args)
         runs = [dk.desc_fused(*args) for _ in range(3)]
         K = ref.shape[0]
@@ -417,56 +500,77 @@ def main() -> int:
         rel = [((h - ref).reshape(K, -1).norm(dim=1) / rn) for h in runs]
         spread = max(float(((a - b).reshape(K, -1).norm(dim=1) / rn).max())
                      for a in runs for b in runs)
-        extents = dk.window_extents(plan.scales[0][nl], plan.units,
-                                    plan.octave_dims[0], params)
-        grot, _ = dk.prep_windows(levels, st_["lvl"], st_["coords"],
-                                  centers, st_["R"], st_["sd"], plan.units,
-                                  extents, params)
+        extents = dk.window_extents(sd_max, plan.units, plan.octave_dims[0],
+                                    params, 4 if fractional else 0)
+        grot, _ = dk.prep_windows(levels, lvl, centers.round().long(),
+                                  centers, R, sd, plan.units, extents, params)
         work = float((grot.abs().sum(dim=1) > 0).sum())
         del grot
-        box, _ = box_voxels(st_["coords"], st_["sd"], params.desc_sig_fctr,
+        box, _ = box_voxels(centers, sd, params.desc_sig_fctr,
                             params.desc_rad_fctr, plan.units,
                             plan.octave_dims[0])
-        print(f"       desc_fused: K={K} keypoints, {box:.0f} box voxels, "
+        print(f"       {name}: K={K} keypoints, {box:.0f} box voxels, "
               f"{work:.0f} in sphere and cube; rel-L2 vs plain per run "
               f"{[float(r.max()) for r in rel]}, spread over 3 runs "
               f"{spread:.3g}", flush=True)
         assert all(bool((r <= 1e-5).all()) for r in rel)
         ms = cuda_ms(torch, lambda: dk.desc_fused(*args), inner=KERNEL_INNER)
         pms = cuda_ms(torch, lambda: dk.desc_fused_plain(*args), reps=5)
-        s.record("desc_fused", "sift3d_tpu_torch/csrc/desc.cu",
+        s.record(name, "sift3d_tpu_torch/csrc/desc.cu",
                  "sift3d_tpu/ops/desc_kernel.py:304",
                  max(float((h - ref).abs().max()) for h in runs), ms, pms,
                  dk.launches,
                  bound(4 * box + 4 * ref.numel(), DESC_OPS_PER_VOXEL * work))
 
+    def desc_phase():
+        desc_check("desc_fused", st_["lvl"], st_["centers"], st_["R"],
+                   st_["sd"], plan.scales[0][nl], False)
+
+    def desc_frac_phase():
+        f = st_["frac"]
+        desc_check("desc_fused_fractional", f["lvl"], f["centers"], f["R"],
+                   f["sd"], f["sd_max"], True)
+
     counters = [(bk, "blur_x_launches", "blur_x"),
                 (bk, "blur_yz_dog_launches", "blur_yz_dog"),
                 (ek, "launches", "extrema_candidates"),
                 (ok, "launches", "orient"),
-                (dk, "launches", "desc_fused")]
+                (dk, "launches", "desc_fused"),
+                (ok, "eigh_launches", "eigh3x3")]
+
+    def reset_counters():
+        for mod, attr, _ in counters:
+            setattr(mod, attr, 0)
+
+    def read_counters(p, where):
+        """Launches since reset_counters; every kernel of the path must
+        have run, s3d_eigh3x3 exactly where the edge test is on (without
+        it the eigensolver runs inside s3d_orient only)."""
+        torch.cuda.synchronize()
+        launches = {name: getattr(mod, attr) for mod, attr, name in counters}
+        print(f"       launches ({where}): {launches}", flush=True)
+        if p.edge_thresh is None:
+            assert launches.pop("eigh3x3") == 0, launches
+        missing = [name for name, n in launches.items() if n == 0]
+        assert not missing, f"not launched on the path: {missing}"
+        return launches
 
     def main_path(cell):
-        _, size, units, reps = CELLS[cell]
+        _, size, units, reps, ext = CELLS[cell]
+        p = st.DetectorParams(**ext)
         g = np.load(GOLDENS[cell])
         assert int(g["size"]) == size
         if "units" in g.files:
             assert tuple(g["units"]) == units, g["units"]
+        if ext:
+            assert bool(g["refine_subvoxel"]) == p.refine_subvoxel
+            assert float(g["edge_thresh"]) == p.edge_thresh
         vol = st.Volume.from_array(vols[cell], units)
-        det = st.SIFT3D(params, device="cuda")
-        for mod, attr, _ in counters:
-            setattr(mod, attr, 0)
-        ok.eigh_launches = 0
+        det = st.SIFT3D(p, device="cuda")
+        reset_counters()
         kp = det.detect_keypoints(vol)
         desc = det.extract_descriptors(kp)
-        torch.cuda.synchronize()
-        launches = {name: getattr(mod, attr) for mod, attr, name in counters}
-        # The eigensolver runs inside s3d_orient, never on its own.
-        assert ok.eigh_launches == 0, ok.eigh_launches
-        print(f"       launches on the main path ({cell}): {launches}",
-              flush=True)
-        missing = [name for name, n in launches.items() if n == 0]
-        assert not missing, f"not launched on the main path: {missing}"
+        launches = read_counters(p, f"main path, {cell}")
         if cell == "sparse256":
             for name, n in launches.items():
                 s.kernels.setdefault(name, {"name": name})["launches"] = n
@@ -474,12 +578,36 @@ def main() -> int:
             # launch per octave.
             assert (launches["blur_x"], launches["blur_yz_dog"],
                     launches["extrema_candidates"]) == (31, 31, 6), launches
+        if cell == "refine128":
+            # The refined path's own kernel rows: fractional centers, and
+            # the eigensolver of the edge test.
+            for name, key in (("orient_fractional", "orient"),
+                              ("desc_fused_fractional", "desc_fused"),
+                              ("eigh3x3", "eigh3x3")):
+                s.kernels.setdefault(name, {"name": name})["launches"] = \
+                    launches[key]
 
         assert len(kp) == len(g["coords"]), (len(kp), len(g["coords"]))
-        for f in ("coords", "octave", "level", "sd"):
+        for f in ("octave", "level"):
             assert np.array_equal(getattr(kp, f), g[f]), f
-        srel = float(np.max(np.abs(kp.strength - g["strength"])
-                            / np.abs(g["strength"])))
+        if ext:
+            # Refined: fractional coordinates from batched 3x3 solves and
+            # scales through exp2, on the card against JAX's CPU LAPACK;
+            # the true strengths.
+            cerr = float(np.abs(kp.coords - g["coords"]).max())
+            sderr = float(np.max(np.abs(kp.sd - g["sd"]) / g["sd"]))
+            assert cerr <= 1e-5 and sderr <= 1e-6, (cerr, sderr)
+            assert np.array_equal(kp.strength, g["strength"])
+            srel = 0.0
+            print(f"       refined rows: coords max abs err {cerr:.3g}, sd "
+                  f"max rel err {sderr:.3g}, strength exact; "
+                  f"{int(np.sum(kp.coords != np.rint(kp.coords)))} of "
+                  f"{kp.coords.size} coordinates fractional", flush=True)
+        else:
+            for f in ("coords", "sd"):
+                assert np.array_equal(getattr(kp, f), g[f]), f
+            srel = float(np.max(np.abs(kp.strength - g["strength"])
+                                / np.abs(g["strength"])))
         rows = np.abs(kp.R - g["R"]).reshape(len(kp), -1).max(axis=1)
         rows64 = np.abs(kp.R - g["R64"]).reshape(len(kp), -1).max(axis=1)
         off = np.nonzero(rows > 1e-5)[0]
@@ -502,13 +630,17 @@ def main() -> int:
                 / np.where(gn > 0, gn, 1.0))
         within = float(np.mean(derr <= 0.01))
         print(f"       vs JAX golden ({cell}): {len(kp)} keypoint rows "
-              f"identical, strength max rel {srel:.3g}, R max err "
+              f"in order, strength max rel {srel:.3g}, R max err "
               f"{rerr:.3g} ({len(off)} rows held to R64 instead; port vs "
               f"R64 on all rows {float(rows64.max()):.3g}), "
               f"descriptors within 1%: {within:.1%} (max rel-L2 "
               f"{float(derr.max()):.3g})", flush=True)
         assert srel <= 1.2e-7 and rerr <= 1e-5 and within == 1.0
-        assert np.array_equal(desc.xyz, g["desc_xyz"])
+        if ext:
+            scale = 2.0 ** kp.octave[:, None]
+            assert np.all(np.abs(desc.xyz - g["desc_xyz"]) <= 1e-5 * scale)
+        else:
+            assert np.array_equal(desc.xyz, g["desc_xyz"])
         assert np.all(np.isfinite(desc.data))
 
         walls = []
@@ -520,21 +652,101 @@ def main() -> int:
             torch.cuda.synchronize()
             if i:
                 walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"       detect + describe {cell} (units {units}), {len(kp)} "
-              f"keypoints: median {statistics.median(walls):.2f} ms wall "
-              f"over {reps} runs (min {min(walls):.2f}, max "
-              f"{max(walls):.2f}) on {card}", flush=True)
+        print(f"       detect + describe {cell} (units {units}"
+              f"{', ' + str(ext) if ext else ''}), {len(kp)} keypoints: "
+              f"median {statistics.median(walls):.2f} ms wall over {reps} "
+              f"runs (min {min(walls):.2f}, max {max(walls):.2f}) on {card}",
+              flush=True)
 
+    def pair_phase():
+        """The 192^3 pair of tools/bench_registration.py make_pair, built on
+        the card: the sparse bench phantom and its copy warped by the
+        inverse of a rotation about z and a shift (default_rng(3))."""
+        g = np.load(REG_GOLDEN)
+        n = int(g["size"])
+        rng = np.random.default_rng(3)
+        th = np.deg2rad(rng.uniform(6, 10))
+        Rz = np.array([[np.cos(th), -np.sin(th), 0],
+                       [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+        c = np.array([(n - 1) / 2.0] * 3)
+        t = rng.uniform(-4, 4, 3)
+        A = np.zeros((3, 4), np.float32)
+        A[:, :3] = Rz
+        A[:, 3] = c - Rz @ c + t
+        assert np.array_equal(A, g["A_true"])
+        fixed = st.Volume.from_array(bench_volume("sparse", n, dev),
+                                     device=dev)
+        M = np.eye(4)
+        M[:3] = A
+        moving = st.warp_volume(fixed, np.linalg.inv(M)[:3].astype(np.float32),
+                                (n, n, n), device=dev)
+        stride = int(g["moving_stride"])
+        samp = moving.data[::stride, ::stride, ::stride].cpu().numpy()
+        vmax = float(fixed.data.abs().max())
+        err = float(np.abs(samp - g["moving_sample"]).max())
+        print(f"       warped {n}^3 moving volume vs the JAX golden's every "
+              f"{stride}th voxel ({samp.size}): max abs diff {err:.3g} "
+              f"(max |vol| {vmax:.3g})", flush=True)
+        assert err <= 1e-5 * vmax
+        st_["pair"] = (fixed, moving, A, g)
+
+    def register_phase(cfg):
+        fixed, moving, A_true, g = st_["pair"]
+        n = int(g["size"])
+        p = st.DetectorParams(**REG_CONFIGS[cfg])
+        det = st.SIFT3D(p, device="cuda")
+        reset_counters()
+        res = st.register(fixed, moving, num_iter=500, detectors=det,
+                          device="cuda")
+        read_counters(p, f"register {cfg}")
+        err = corner_error(res.affine, A_true, n)
+        jerr = float(g[f"{cfg}_err"])
+        vs_jax = corner_error(res.affine, g[f"{cfg}_affine"], n)
+        print(f"       register{n} {cfg}: matches {res.num_matches} (JAX "
+              f"{int(g[f'{cfg}_matches'])}), inliers {res.num_inliers} (JAX "
+              f"{int(g[f'{cfg}_inliers'])}); corner error vs truth "
+              f"{err:.4f} vox (JAX {jerr:.4f}), vs JAX's affine "
+              f"{vs_jax:.4f} vox", flush=True)
+        assert np.all(np.isfinite(res.affine))
+        assert res.inlier_mask.shape == (res.num_matches,)
+        if cfg == "default":
+            assert err <= jerr + 0.25
+        else:
+            assert err < 1.0 and vs_jax <= 0.25
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.register(fixed, moving, num_iter=500, detectors=det,
+                        device="cuda")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"       register {n}^3 pair ({cfg}): median "
+              f"{statistics.median(walls):.2f} ms wall over 3 runs (min "
+              f"{min(walls):.2f}, max {max(walls):.2f}) on {card}",
+              flush=True)
+
+    t_start = time.perf_counter()
     s.phase("blur x and y/z + DoG kernels vs plain, six levels "
             "(bit-exact)", blur_phase)
     s.phase("extrema candidates vs plain route (identical)", extrema_phase)
     s.phase("orientation kernel vs plain (predicates identical, rel 1e-5)",
             ori_phase)
+    s.phase("orientation kernel at fractional centers vs plain "
+            "(predicates identical, rel 1e-5)", ori_frac_phase)
     s.phase("eigh3x3 kernel vs plain (bit-identical)", eigh_phase)
     s.phase("descriptor kernel vs plain (rel-L2 1e-5)", desc_phase)
+    s.phase("descriptor kernel at fractional centers vs plain "
+            "(rel-L2 1e-5)", desc_frac_phase)
     for cell in CELLS:
         s.phase(f"main path: detect + describe, {cell}, vs JAX golden",
                 lambda cell=cell: main_path(cell))
+    s.phase("registration pair, 192^3, warped on the card vs JAX golden",
+            pair_phase)
+    for cfg in REG_CONFIGS:
+        s.phase(f"registration, 192^3, {cfg} params, vs JAX golden",
+                lambda cfg=cfg: register_phase(cfg))
+    print(f"all phases {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(s.kernels.values())}), flush=True)
     if s.failures:

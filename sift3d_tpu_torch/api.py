@@ -1,6 +1,7 @@
 """Functional convenience API mirroring the reference's public surface
-(sift3d_detect_keypoints / sift3d_extract_descriptors, sift.h). The object
-API (pipeline.SIFT3D) remains the primary interface."""
+(sift3d_detect_keypoints / sift3d_extract_descriptors, sift.h) and the
+upstream 1.x line's register_SIFT3D. The object API (pipeline.SIFT3D)
+remains the primary interface."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 from .keypoints import Descriptors, Keypoints
 from .params import DESC_NUMEL, DetectorParams
 from .pipeline import SIFT3D
+from .registration import RegistrationResult, register
 
 
 def detect_keypoints(vol, params: DetectorParams = DetectorParams(),
@@ -36,3 +38,11 @@ def detect_and_extract(vol, params: DetectorParams = DetectorParams(),
                            sd=np.zeros(0, np.float32),
                            data=np.zeros((0, DESC_NUMEL), np.float32))
     return kp, desc
+
+
+def register_sift3d(fixed, moving, params: DetectorParams | None = None,
+                    device: torch.device | str = "cuda",
+                    **kwargs) -> RegistrationResult:
+    """Full SIFT3D registration (the upstream register_SIFT3D capability)
+    on `device`: detect + describe both volumes, match, RANSAC affine."""
+    return register(fixed, moving, params=params, device=device, **kwargs)

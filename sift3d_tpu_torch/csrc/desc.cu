@@ -6,8 +6,9 @@
 // sift3d_tpu_torch/ops/desc_kernel.py.
 //
 // Inputs: one octave's levels f32[nl, nx, ny, nz], per keypoint its level,
-// integer-valued center, R f32[3, 3] and scale sd. Output hist f32[K, 16,
-// 48] (zero on entry) = [(cz, cy), (cx, v)].
+// f32 center (integer-valued, or fractional after subvoxel refinement),
+// R f32[3, 3] and scale sd. Output hist f32[K, 16, 48] (zero on entry) =
+// [(cz, cy), (cx, v)].
 //
 // Grid (K, splits): block (k, s) takes slice s of keypoint k's loop-bound
 // box (IM_LOOP_SPHERE_START, sift.c:86-109) and reads the level in place.

@@ -7,13 +7,15 @@
 // wrapper: sift3d_tpu_torch/ops/ori_kernel.py.
 //
 // One block per keypoint. The block walks the reference's loop-bound box
-// (IM_LOOP_SPHERE_START, sift.c:86-109) on the keypoint's level in place,
-// keeps the voxels of the sphere, and sums the Gaussian-weighted moments
-// of the central-difference gradient (IM_GET_GRAD_ISO, sift.c:140-145) in
-// f32. After the block reduction one thread runs the rest of
-// assign_orientations on its 12 numbers, in registers: 6 cyclic Jacobi
-// sweeps and a stable ascending sort (eigh3x3), the weak-gradient,
-// eigenvalue-ratio and corner tests (sift.c:996-1102), sign fixing and R.
+// (IM_LOOP_SPHERE_START, sift.c:86-109) of the keypoint's f32 center,
+// integer-valued or fractional after subvoxel refinement (the TPU kernel's
+// fp), on the keypoint's level in place, keeps the voxels of the sphere,
+// and sums the Gaussian-weighted moments of the central-difference
+// gradient (IM_GET_GRAD_ISO, sift.c:140-145) in f32. After the block
+// reduction one thread runs the rest of assign_orientations on its 12
+// numbers, in registers: 6 cyclic Jacobi sweeps and a stable ascending sort
+// (eigh3x3), the weak-gradient, eigenvalue-ratio and corner tests
+// (sift.c:996-1102), sign fixing and R.
 //
 // Bound on the H100: latency. An octave has tens to hundreds of
 // candidates of ~10^4 window voxels each, a few microseconds of reads;
@@ -23,7 +25,9 @@
 // nothing into an FMA: the sphere test and the weights match the
 // reference, and eigh3x3 matches sift3d_tpu_torch's plain eigh3x3 op for
 // op (bit for bit on the same A; s3d_eigh3x3 exports it batched). Only
-// the moment sums run in another order than the plain version.
+// the moment sums run in another order than the plain version. The TPU
+// kernel's integer anchors placed its window DMA; walking the box in place
+// needs none.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -176,15 +180,14 @@ struct Window {
 
 __global__ void ori_kernel(const float* __restrict__ levels,
                            const int64_t* __restrict__ lvl,
-                           const int64_t* __restrict__ coords,
+                           const float* __restrict__ centers,
                            const float* __restrict__ sd_in,
                            float* __restrict__ moments,
                            float* __restrict__ R_out,
                            bool* __restrict__ flags_out, Window win,
                            Thresholds th) {
   const int k = blockIdx.x;
-  const float c[3] = {(float)coords[3 * k], (float)coords[3 * k + 1],
-                      (float)coords[3 * k + 2]};
+  const float c[3] = {centers[3 * k], centers[3 * k + 1], centers[3 * k + 2]};
   const float sd = sd_in[k];
   const int n[3] = {win.nx, win.ny, win.nz};
   const float sigma = __fmul_rn(sd, win.sig_fctr);
@@ -285,10 +288,11 @@ __global__ void eigh_kernel(const float* __restrict__ A, float* __restrict__ w,
 
 }  // namespace
 
-// moments f32[K, 12] = A (row-major) then vd; R f32[K, 3, 3]; flags
-// bool[K, 4] = accepted, reject_grad, reject_ratio, reject_corner.
+// centers f32[K, 3]; moments f32[K, 12] = A (row-major) then vd; R f32[K,
+// 3, 3]; flags bool[K, 4] = accepted, reject_grad, reject_ratio,
+// reject_corner.
 extern "C" int s3d_orient(const float* levels, const int64_t* lvl,
-                          const int64_t* coords, const float* sd,
+                          const float* centers, const float* sd,
                           float* moments, float* R, bool* flags, int K,
                           int nx, int ny, int nz, float ux, float uy, float uz,
                           float ix, float iy, float iz, float sig_fctr,
@@ -298,7 +302,7 @@ extern "C" int s3d_orient(const float* levels, const int64_t* lvl,
                    rad_fctr};
   const Thresholds th{grad_thresh, eig_ratio, corner_thresh};
   ori_kernel<<<K, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      levels, lvl, coords, sd, moments, R, flags, win, th);
+      levels, lvl, centers, sd, moments, R, flags, win, th);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,14 +43,17 @@ def normalize(hist: torch.Tensor, params: DetectorParams) -> torch.Tensor:
 def extract_descriptors(levels: torch.Tensor, lvl: torch.Tensor,
                         centers: torch.Tensor, R: torch.Tensor,
                         sd: torch.Tensor, octave: int, units,
-                        params: DetectorParams, sd_max: float):
+                        params: DetectorParams, sd_max: float,
+                        fractional: bool = False):
     """Descriptors of K keypoints of one octave.
 
     levels f32[nl, nx, ny, nz]; lvl i64[K] level index; centers f32[K, 3]
-    (integer-valued); R f32[K, 3, 3]; sd f32[K], each <= sd_max.
+    (integer-valued, or fractional after subvoxel refinement); R f32[K, 3,
+    3]; sd f32[K], each <= sd_max.
     Returns (desc f32[K, 768], xyz f32[K, 3] base-octave coordinates)."""
     K = centers.shape[0]
-    hist = desc_fused(levels, lvl, centers, R, sd, units, params, sd_max)
+    hist = desc_fused(levels, lvl, centers, R, sd, units, params, sd_max,
+                      fractional)
     # [(cz, cy), (cx, v)] -> flat hist index x + 4y + 16z, vertex minor
     # (DESC_MAT_GET_COL, sift.c:136-137): the row-major order already.
     desc = normalize(hist.reshape(K, DESC_NUMEL), params)

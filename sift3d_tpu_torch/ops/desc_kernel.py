@@ -124,17 +124,20 @@ def _hist_chunk(g, vb, eps, consts):
 def desc_hist_plain(grot: torch.Tensor, vbins: torch.Tensor, eps: float,
                     vox_chunk: int = 65536) -> torch.Tensor:
     """Plain version: the dense per-voxel contraction, keypoint by
-    keypoint in voxel chunks."""
-    K, _, N = grot.shape
+    keypoint in voxel chunks, over the voxels whose |grot|^2 reaches eps
+    (the others add nothing; the kernel skips them too)."""
+    K = grot.shape[0]
     consts = _consts(grot.device)
     eps = np.float32(eps)
     out = torch.zeros((K, NB * NB, NB * ICOS_NVERT), dtype=torch.float32,
                       device=grot.device)
     for k in range(K):
-        for s in range(0, N, vox_chunk):
-            out[k] += _hist_chunk(grot[k, :, s:s + vox_chunk].T,
-                                  vbins[k, :, s:s + vox_chunk].T, eps,
-                                  consts)
+        g, vb = grot[k].T, vbins[k].T
+        work = (g * g).sum(dim=-1) >= eps
+        g, vb = g[work], vb[work]
+        for s in range(0, g.shape[0], vox_chunk):
+            out[k] += _hist_chunk(g[s:s + vox_chunk], vb[s:s + vox_chunk],
+                                  eps, consts)
     return out
 
 
@@ -146,11 +149,13 @@ def level_radius(sd: float, params) -> float:
     return float(np.float32(params.desc_rad_fctr) * sigma)
 
 
-def window_extents(sd_max: float, units, dims, params):
+def window_extents(sd_max: float, units, dims, params, margin: int = 0):
     """Window size per axis that holds the loop-bound box of every
-    keypoint of scale <= sd_max (windows.window_extent)."""
+    keypoint of scale <= sd_max (windows.window_extent); margin 4 where
+    centers are fractional (sift3d_tpu/descriptor.py:504-508)."""
     rad = level_radius(sd_max, params)
-    return tuple(window_extent(rad / units[a], dims[a]) for a in range(3))
+    return tuple(window_extent(rad / units[a], dims[a], margin)
+                 for a in range(3))
 
 
 def prep_windows(levels: torch.Tensor, lvl: torch.Tensor,
@@ -214,12 +219,14 @@ def prep_windows(levels: torch.Tensor, lvl: torch.Tensor,
 
 def desc_fused_plain(levels: torch.Tensor, lvl: torch.Tensor,
                      centers: torch.Tensor, R: torch.Tensor,
-                     sd: torch.Tensor, units, params,
-                     sd_max: float) -> torch.Tensor:
+                     sd: torch.Tensor, units, params, sd_max: float,
+                     fractional: bool = False) -> torch.Tensor:
     """Plain version: prep_windows then desc_hist_plain, in batches of
-    keypoints whose windows hold about _PREP_VOXELS voxels."""
+    keypoints whose windows hold about _PREP_VOXELS voxels. Each window is
+    anchored at rint(center) (sift3d_tpu/pipeline.py:1719)."""
     K = centers.shape[0]
-    extents = window_extents(sd_max, units, levels.shape[1:], params)
+    extents = window_extents(sd_max, units, levels.shape[1:], params,
+                             4 if fractional else 0)
     coords = centers.round().long()
     nvox = int(np.prod([e - 2 for e in extents]))
     step = max(1, _PREP_VOXELS // nvox)
@@ -234,16 +241,19 @@ def desc_fused_plain(levels: torch.Tensor, lvl: torch.Tensor,
 
 def desc_fused(levels: torch.Tensor, lvl: torch.Tensor,
                centers: torch.Tensor, R: torch.Tensor, sd: torch.Tensor,
-               units, params, sd_max: float) -> torch.Tensor:
+               units, params, sd_max: float,
+               fractional: bool = False) -> torch.Tensor:
     """Histograms f32[K, 16, 48] of K keypoints of one octave.
 
     levels f32[L, nx, ny, nz]; lvl i64[K] level per keypoint; centers
-    f32[K, 3] integer-valued; R f32[K, 3, 3]; sd f32[K] absolute scale,
-    all <= sd_max; params a DetectorParams."""
+    f32[K, 3], integer-valued or (fractional) subvoxel-refined; R f32[K,
+    3, 3]; sd f32[K] absolute scale, all <= sd_max; params a
+    DetectorParams. sd_max and fractional size the plain version's
+    windows and the kernel's split of a keypoint's box."""
     global launches
     if levels.device.type == "cpu":
         return desc_fused_plain(levels, lvl, centers, R, sd, units, params,
-                                sd_max)
+                                sd_max, fractional)
     K = centers.shape[0]
     _, nx, ny, nz = levels.shape
     _build.check_cuda("desc_fused levels", levels, torch.float32)
@@ -257,7 +267,7 @@ def desc_fused(levels: torch.Tensor, lvl: torch.Tensor,
         return out
     # The largest loop-bound box, which sizes the split of each keypoint.
     box = int(np.prod([e - 2 for e in window_extents(
-        sd_max, units, levels.shape[1:], params)]))
+        sd_max, units, levels.shape[1:], params, 4 if fractional else 0)]))
     splits = max(1, min(-(-_MIN_BLOCKS // K), box // _VOX_PER_BLOCK_MIN))
     geom, face_idx = _consts(levels.device)
     u = [np.float32(x) for x in units]

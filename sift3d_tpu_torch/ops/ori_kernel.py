@@ -3,30 +3,38 @@
 Replaces the TPU kernel ``sift3d_tpu/ops/ori_kernel.py:167
 ori_moments_pallas`` and the epilogue that ran after it in the same XLA
 program (``sift3d_tpu/orientation.py:250-289``). Per keypoint k, on
-pyramid level lvl[k] around the integer center coords[k] with scale sd[k]:
-central-difference gradients times 1/units (IM_GET_GRAD_ISO,
-sift.c:140-145), the reference's loop bounds [max(floor(c - rad/u), 1),
-min(ceil(c + rad/u), n-2)] computed in f32 and the sphere |d| <= rad
-(IM_LOOP_SPHERE_START, sift.c:86-109), with sigma = ori_sig_fctr * sd,
-rad = ori_rad_fctr * sigma and the weight exp(-r^2 / (2 sigma^2)), give
-the structure tensor A = sum w g g^T and vd = sum w g (assign_eig_ori,
-sift.c:963-989). Then eigh3x3 (6 cyclic Jacobi sweeps, eigenvalues
-ascending), the weak-gradient, eigenvalue-ratio and corner tests
+pyramid level lvl[k] around the center centers[k] (integer-valued, or
+fractional after subvoxel refinement) with scale sd[k]: central-difference
+gradients times 1/units (IM_GET_GRAD_ISO, sift.c:140-145), the
+reference's loop bounds [max(floor(c - rad/u), 1), min(ceil(c + rad/u),
+n-2)] computed in f32 and the sphere |d| <= rad (IM_LOOP_SPHERE_START,
+sift.c:86-109), with sigma = ori_sig_fctr * sd, rad = ori_rad_fctr *
+sigma and the weight exp(-r^2 / (2 sigma^2)), give the structure tensor
+A = sum w g g^T and vd = sum w g (assign_eig_ori, sift.c:963-989). Then
+eigh3x3 (6 cyclic Jacobi sweeps, eigenvalues ascending), the
+weak-gradient, eigenvalue-ratio and corner tests
 (sift.c:996-1102) and R = [r0, r1, r0 x r1] from the two largest
 eigenvectors, each signed so the directional derivative along it is
 positive (sift.c:1017-1059).
 
 CUDA kernel (csrc/ori.cu, ``s3d_orient``): one block per keypoint walks
-the loop-bound box of its level in place and reduces the 9 moment sums;
-one thread then runs eigh3x3, the tests and R in registers. One launch per
-octave writes A, vd, R and the four predicates. ``s3d_eigh3x3`` exports
-the kernel's eigensolver alone, batched, so that the card can hold it bit
-for bit against ``eigh3x3_plain``.
+the loop-bound box of its f32 center on its level in place and reduces the
+9 moment sums; one thread then runs eigh3x3, the tests and R in registers.
+One launch per octave writes A, vd, R and the four predicates.
+``s3d_eigh3x3`` exports the kernel's eigensolver alone, batched: the card
+holds it bit for bit against ``eigh3x3_plain``, and the Hessian edge test
+of refinement.py runs on it.
 
 Bound on the H100: latency — a few hundred keypoints of ~10^4 voxels each
 is a few microseconds of reads. The moment sums run in another order than
 the plain version (tolerance: rel 1e-5); the eigensolver and the tests use
 the plain version's operations in its order.
+
+The plain version gathers a window around each keypoint's integer anchor
+(the candidate's voxel; the TPU kernel's ``coords``) that holds the box:
+with fractional centers, which lie within a voxel of the anchor, the
+window gets the JAX package's margin of 4 voxels
+(sift3d_tpu/orientation.py:204-210). The kernel needs no anchor.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises.
@@ -58,10 +66,11 @@ class Orientation(NamedTuple):
     reject_corner: torch.Tensor  # bool[K]
 
 
-def _moments_chunk(levels, lvl, fp, units, sig_fctr, rad_fctr, extents):
+def _moments_chunk(levels, lvl, anchors, fp, units, sig_fctr, rad_fctr,
+                   extents):
     n = levels.shape[1:]
     center, sd = fp[:, :3], fp[:, 3]
-    win, start = gather_windows(levels, lvl, center.round().long(), extents)
+    win, start = gather_windows(levels, lvl, anchors, extents)
     K = fp.shape[0]
     sigma = sd * np.float32(sig_fctr)
     rad = sigma * np.float32(rad_fctr)
@@ -96,18 +105,21 @@ def _moments_chunk(levels, lvl, fp, units, sig_fctr, rad_fctr, extents):
 
 
 def ori_moments_plain(levels: torch.Tensor, lvl: torch.Tensor,
-                      fp: torch.Tensor, units, sig_fctr: float,
-                      rad_fctr: float, chunk: int = 256):
+                      anchors: torch.Tensor, fp: torch.Tensor, units,
+                      sig_fctr: float, rad_fctr: float, sd_max: float,
+                      margin: int = 0, chunk: int = 256):
     """Window moments (A [K, 3, 3], vd [K, 3]) from gathered windows and
     masked sums, as sift3d_tpu/orientation.py:48 _window_moments.
-    fp f32[K, 4] = (cx, cy, cz, sd) with integer-valued centers."""
+    anchors i64[K, 3] window anchors; fp f32[K, 4] = (cx, cy, cz, sd), sd
+    <= sd_max; margin the windows' slack for fractional centers."""
     warm_cpu_math(levels.device)
     n = levels.shape[1:]
-    rad_max = sig_fctr * float(fp[:, 3].max()) * rad_fctr
-    extents = tuple(window_extent(rad_max / units[a], n[a])
+    rad_max = sig_fctr * sd_max * rad_fctr
+    extents = tuple(window_extent(rad_max / units[a], n[a], margin)
                     for a in range(3))
-    parts = [_moments_chunk(levels, lvl[s:s + chunk], fp[s:s + chunk],
-                            units, sig_fctr, rad_fctr, extents)
+    parts = [_moments_chunk(levels, lvl[s:s + chunk], anchors[s:s + chunk],
+                            fp[s:s + chunk], units, sig_fctr, rad_fctr,
+                            extents)
              for s in range(0, fp.shape[0], chunk)]
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
@@ -216,30 +228,46 @@ def _epilogue(A, vd, params) -> Orientation:
 
 
 def orient_plain(levels: torch.Tensor, lvl: torch.Tensor,
-                 coords: torch.Tensor, sd: torch.Tensor, units,
-                 params) -> Orientation:
+                 anchors: torch.Tensor, sd: torch.Tensor, units, params, *,
+                 centers: torch.Tensor | None = None,
+                 sd_max: float | None = None,
+                 fractional: bool = False) -> Orientation:
     """Plain version: ori_moments_plain, eigh3x3_plain, then the tests."""
-    fp = torch.cat([coords.to(torch.float32), sd[:, None]], dim=1)
-    A, vd = ori_moments_plain(levels, lvl, fp.contiguous(), units,
-                              params.ori_sig_fctr, params.ori_rad_fctr)
+    if centers is None:
+        centers = anchors.to(torch.float32)
+    if sd_max is None:
+        sd_max = float(sd.max()) if sd.numel() else 0.0
+    fp = torch.cat([centers, sd[:, None]], dim=1)
+    A, vd = ori_moments_plain(levels, lvl, anchors, fp.contiguous(), units,
+                              params.ori_sig_fctr, params.ori_rad_fctr,
+                              sd_max, 4 if fractional else 0)
     return _epilogue(A, vd, params)
 
 
-def orient(levels: torch.Tensor, lvl: torch.Tensor, coords: torch.Tensor,
-           sd: torch.Tensor, units, params) -> Orientation:
+def orient(levels: torch.Tensor, lvl: torch.Tensor, anchors: torch.Tensor,
+           sd: torch.Tensor, units, params, *,
+           centers: torch.Tensor | None = None, sd_max: float | None = None,
+           fractional: bool = False) -> Orientation:
     """Orientation of K keypoints of one octave.
 
-    levels f32[L, nx, ny, nz]; lvl i64[K] level per keypoint; coords
-    i64[K, 3] integer centers; sd f32[K] absolute scale; params a
-    DetectorParams."""
+    levels f32[L, nx, ny, nz]; lvl i64[K] level per keypoint; anchors
+    i64[K, 3] integer voxels; sd f32[K] absolute scale; params a
+    DetectorParams. centers f32[K, 3] (default: the anchors) are the true
+    window centers, within a voxel of the anchors when fractional; sd_max
+    (default: max sd) bounds sd. The anchors, sd_max and fractional size
+    and place the plain version's windows only."""
     global launches
     if levels.device.type == "cpu":
-        return orient_plain(levels, lvl, coords, sd, units, params)
-    K = coords.shape[0]
+        return orient_plain(levels, lvl, anchors, sd, units, params,
+                            centers=centers, sd_max=sd_max,
+                            fractional=fractional)
+    K = anchors.shape[0]
+    if centers is None:
+        centers = anchors.to(torch.float32)
     _, nx, ny, nz = levels.shape
     _build.check_cuda("orient levels", levels, torch.float32)
     _build.check_cuda("orient lvl", lvl, torch.int64, (K,))
-    _build.check_cuda("orient coords", coords, torch.int64, (K, 3))
+    _build.check_cuda("orient centers", centers, torch.float32, (K, 3))
     _build.check_cuda("orient sd", sd, torch.float32, (K,))
     dev = levels.device
     moments = torch.empty((K, 12), dtype=torch.float32, device=dev)
@@ -252,7 +280,7 @@ def orient(levels: torch.Tensor, lvl: torch.Tensor, coords: torch.Tensor,
                 params.ori_grad_thresh, params.max_eig_ratio,
                 params.corner_thresh]
         _build.call("s3d_orient", levels.data_ptr(), lvl.data_ptr(),
-                    coords.data_ptr(), sd.data_ptr(), moments.data_ptr(),
+                    centers.data_ptr(), sd.data_ptr(), moments.data_ptr(),
                     R.data_ptr(), flags.data_ptr(), K, nx, ny, nz,
                     *(float(np.float32(x)) for x in scal),
                     _build.stream_ptr(levels))

@@ -12,7 +12,9 @@ if the corner score min |cos(angle(eigvec, mean grad))| is below
 corner_thresh (sift.c:1091-1102).
 
 All of it runs in ops.ori_kernel: one kernel launch per octave on the
-card, the plain PyTorch version on the CPU.
+card, the plain PyTorch version on the CPU. Centers may be fractional
+(subvoxel refinement) and scales per keypoint, as in
+sift3d_tpu/orientation.py:176-216.
 """
 
 from __future__ import annotations
@@ -39,11 +41,17 @@ class OrientationResult(NamedTuple):
 def assign_orientations(levels: torch.Tensor, lvl: torch.Tensor,
                         coords: torch.Tensor, sd: torch.Tensor,
                         units: tuple[float, float, float],
-                        params: DetectorParams) -> OrientationResult:
+                        params: DetectorParams, *,
+                        centers: torch.Tensor | None = None,
+                        sd_max: float | None = None,
+                        fractional: bool = False) -> OrientationResult:
     """Orientation of K keypoints of one octave.
 
     levels f32[nl, nx, ny, nz] (the octave's keypoint levels); lvl i64[K]
-    level index; coords i64[K, 3]; sd f32[K] absolute scale."""
-    o = orient(levels, lvl, coords, sd, units, params)
+    level index; coords i64[K, 3] integer anchors; sd f32[K] absolute
+    scale, at most sd_max (default: its max); centers f32[K, 3] the window
+    centers (default: coords), within a voxel of coords when fractional."""
+    o = orient(levels, lvl, coords, sd, units, params, centers=centers,
+               sd_max=sd_max, fractional=fractional)
     return OrientationResult(o.R, o.accepted, o.reject_grad, o.reject_ratio,
                              o.reject_corner)

@@ -7,9 +7,9 @@ compile-time switches behind its #defines (CUBOID_EXTREMA at sift.c:24,
 SIFT3D_GAUSS_WIDTH_FCTR at imutil.c:1264-1266) and its internal constants
 (sift.c:38-45). Citations are into the reference C sources of SIFT3D.
 
-The two opt-in extensions of the JAX package (subvoxel refinement and
-Hessian edge rejection) are not ported yet: setting either raises
-NotImplementedError rather than being ignored.
+Two opt-in extensions of the JAX package sit beside them, off by default
+as there (refinement.py): subvoxel refinement (refine_subvoxel) and
+Hessian edge rejection (edge_thresh, a ratio of eigenvalue magnitudes).
 """
 
 from __future__ import annotations
@@ -29,9 +29,6 @@ ICOS_NVERT = 12
 ICOS_NFACES = 20
 DESC_NUM_TOTAL_HIST = NHIST_PER_DIM ** 3  # 64
 DESC_NUMEL = DESC_NUM_TOTAL_HIST * ICOS_NVERT  # 768
-
-_EXTENSIONS = ("refine_subvoxel", "edge_thresh")
-
 
 @dataclasses.dataclass(frozen=True)
 class DetectorParams:
@@ -58,15 +55,11 @@ class DetectorParams:
     desc_rad_fctr: float = 2.0
     trunc_thresh: float = 0.2 * 128.0 / DESC_NUMEL
 
-    # --- extensions of the JAX package, not ported yet ---
+    # --- opt-in extensions of the JAX package (refinement.py) ---
     refine_subvoxel: bool = False
     edge_thresh: Optional[float] = None
 
     def __post_init__(self):
-        if self.refine_subvoxel or self.edge_thresh is not None:
-            raise NotImplementedError(
-                "refine_subvoxel / edge_thresh are not ported to "
-                "sift3d_tpu_torch yet")
         # The reference setters' range checks (sift.c:499-565).
         if not (0.0 < self.peak_thresh <= 1.0):
             raise ValueError(
@@ -87,6 +80,15 @@ class DetectorParams:
             raise ValueError(
                 f"sigma_n ({self.sigma_n}) exceeds the scale of the first "
                 f"pyramid level ({self.first_level_scale})")
+        if self.edge_thresh is not None and self.edge_thresh < 1.0:
+            raise ValueError(
+                f"edge_thresh must be >= 1 (eigenvalue magnitude ratio), "
+                f"got {self.edge_thresh}")
+
+    @property
+    def extensions(self) -> bool:
+        """Subvoxel refinement or edge rejection is on."""
+        return self.refine_subvoxel or self.edge_thresh is not None
 
     # --- derived pyramid structure (resize_SIFT3D, sift.c:434-435) ---
 
@@ -124,12 +126,7 @@ class DetectorParams:
 
 def from_jax_params(d: dict) -> DetectorParams:
     """DetectorParams from ``dataclasses.asdict`` of the JAX package's
-    DetectorParams: the reference fields are kept, the execution knobs of
-    the TPU pipeline are dropped, and an enabled extension raises
-    NotImplementedError."""
-    for name in _EXTENSIONS:
-        if d.get(name) not in (False, None):
-            raise NotImplementedError(
-                f"{name}={d[name]!r} is not ported to sift3d_tpu_torch yet")
+    DetectorParams: the reference fields and the two extensions are kept,
+    the execution knobs of the TPU pipeline are dropped."""
     keep = {f.name for f in dataclasses.fields(DetectorParams)}
     return DetectorParams(**{k: v for k, v in d.items() if k in keep})

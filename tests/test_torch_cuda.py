@@ -189,3 +189,109 @@ def test_wrappers_reject_bad_tensors(dev):
                       torch.zeros((2, 3, 3), device=dev),
                       torch.ones(2, device=dev), (1, 1, 1), DetectorParams(),
                       1.0)
+
+
+def _fractional(dev, K, shape, nl, seed):
+    """Random keypoints of one octave at fractional centers: integer
+    anchors i64[K, 3] in the interior, centers f32[K, 3] within a voxel of
+    them, scales f32[K] up to 2^(1/nl) above the largest level's."""
+    g = np.random.default_rng(seed)
+    anchors = np.stack([g.integers(1, n - 1, K) for n in shape], axis=1)
+    centers = (anchors + g.uniform(-1, 1, (K, 3))).astype(np.float32)
+    lvl = g.integers(0, nl, K)
+    sd = g.uniform(1.0, 4.0, K).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (lvl, anchors, centers, sd))
+
+
+@pytest.mark.parametrize("units", [(1.0, 1.0, 1.0), (1.0, 1.0, 1.5)])
+def test_orient_fractional_close(dev, units):
+    """s3d_orient at fractional centers (subvoxel refinement) vs
+    orient_plain with the fractional margin: identical predicates, A and
+    vd within rel 1e-5, R within 1e-5 where accepted."""
+    from sift3d_tpu_torch.ops import ori_kernel as ok
+    from sift3d_tpu_torch.params import DetectorParams
+    params = DetectorParams()
+    shape = (30, 28, 33)
+    levels = _rand((3,) + shape, 13, dev)
+    K = 21
+    lvl, anchors, centers, sd = _fractional(dev, K, shape, 3, 14)
+    kw = dict(centers=centers, sd_max=4.0, fractional=True)
+    n0 = ok.launches
+    got = ok.orient(levels, lvl, anchors, sd, units, params, **kw)
+    assert ok.launches - n0 == 1
+    ref = ok.orient_plain(levels, lvl, anchors, sd, units, params, **kw)
+    for a, b in ((got.A, ref.A), (got.vd, ref.vd)):
+        err = (a - b).abs().reshape(K, -1).amax(1)
+        scale = b.abs().reshape(K, -1).amax(1)
+        assert bool((err <= 1e-5 * scale).all())
+    for name in ("accepted", "reject_grad", "reject_ratio", "reject_corner"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    acc = ref.accepted
+    if bool(acc.any()):
+        assert float((got.R[acc] - ref.R[acc]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("units", [(1.0, 1.0, 1.0), (1.0, 1.0, 1.5)])
+def test_desc_fused_fractional_close(dev, units):
+    """s3d_desc_fused at fractional centers vs the plain version with the
+    fractional margin: rel-L2 <= 1e-5 per keypoint."""
+    from sift3d_tpu_torch.ops import desc_kernel as dk
+    from sift3d_tpu_torch.params import DetectorParams
+    shape = (40, 36, 44)
+    levels = _rand((3,) + shape, 15, dev)
+    K = 6
+    lvl, _, centers, _ = _fractional(dev, K, shape, 3, 16)
+    sd = torch.tensor([1.6, 2.0, 2.5, 1.8, 2.9, 3.1], device=dev)
+    Q, _ = torch.linalg.qr(_rand((K, 3, 3), 17, dev))
+    args = (levels, lvl, centers, Q.contiguous(), sd, units,
+            DetectorParams(), 3.2, True)
+    got = dk.desc_fused(*args)
+    ref = dk.desc_fused_plain(*args)
+    rel = (got - ref).reshape(K, -1).norm(dim=1) / ref.reshape(K, -1) \
+        .norm(dim=1)
+    assert bool((rel <= 1e-5).all()), rel
+
+
+def test_register_on_card(dev):
+    """register on the card: the rotated and shifted 128^3 bench pair
+    (tools/bench_registration.py make_pair) within 2 voxels of the truth;
+    matching and RANSAC on the card's descriptors give the CPU's pairs and
+    inliers (the hypotheses come from one seeded CPU generator)."""
+    from sift3d_tpu_torch import SIFT3D, DetectorParams, Volume
+    from sift3d_tpu_torch import registration as reg
+    from sift3d_tpu_torch.phantoms import bench_volume
+    n = 128
+    rng = np.random.default_rng(3)
+    th = np.deg2rad(rng.uniform(6, 10))
+    Rz = np.array([[np.cos(th), -np.sin(th), 0],
+                   [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+    c = np.array([(n - 1) / 2.0] * 3)
+    A = np.zeros((3, 4), np.float32)
+    A[:, :3] = Rz
+    A[:, 3] = c - Rz @ c + rng.uniform(-4, 4, 3)
+    M = np.eye(4)
+    M[:3] = A
+    fixed = Volume.from_array(bench_volume("sparse", n, dev), device=dev)
+    moving = reg.warp_volume(fixed, np.linalg.inv(M)[:3].astype(np.float32),
+                             (n, n, n), device=dev)
+    det = SIFT3D(DetectorParams(refine_subvoxel=True), dev)
+    res = reg.register(fixed, moving, detectors=det, device=dev)
+    corners = np.array([[x, y, z, 1.0] for x in (0, n - 1)
+                        for y in (0, n - 1) for z in (0, n - 1)])
+    err = np.linalg.norm(corners @ (res.affine - A).T, axis=1).mean()
+    assert res.num_inliers >= 8 and err < 2.0, (res.num_inliers, err)
+
+    kf = det.detect_keypoints(fixed)
+    df = det.extract_descriptors(kf)
+    km = det.detect_keypoints(moving)
+    dm = det.extract_descriptors(km)
+    got = reg.match_descriptors(dm, df, device=dev)
+    ref = reg.match_descriptors(dm, df, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
+    src, dst = dm.xyz[got[0]], df.xyz[got[1]]
+    w = 1.0 / (4.0 ** km.octave[got[0]] + 4.0 ** kf.octave[got[1]])
+    Ag, mg = reg.ransac_affine(src, dst, weights=w, device=dev)
+    Ac, mc = reg.ransac_affine(src, dst, weights=w, device="cpu")
+    assert np.array_equal(mg, mc)
+    assert np.abs(Ag - Ac).max() <= 1e-3

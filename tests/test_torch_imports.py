@@ -16,6 +16,7 @@ _PROBE = """
 import sys
 import sift3d_tpu_torch
 import sift3d_tpu_torch.cli, sift3d_tpu_torch.io
+import sift3d_tpu_torch.refinement, sift3d_tpu_torch.registration
 from sift3d_tpu_torch.ops import (_build, blur_kernel, desc_kernel,
                                   extrema_kernel, ori_kernel)
 bad = sorted(m for m in sys.modules
@@ -82,3 +83,19 @@ def test_wrappers_use_plain_version_only_on_cpu(mod, fn, args):
     assert "_build.call(" in src and "launches += 1" in src
     assert "try:" not in src
     assert hasattr(m, f"{fn}_plain")
+
+
+@pytest.mark.parametrize("mod", ["refinement", "registration"])
+def test_new_modules_import_torch_and_no_jax(mod):
+    """refinement.py and registration.py name torch and nothing of jax or
+    of the JAX package in their imports."""
+    import ast
+    tree = ast.parse((REPO / "sift3d_tpu_torch" / f"{mod}.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    assert "torch" in names
+    assert not names & {"jax", "jaxlib", "sift3d_tpu"}, names

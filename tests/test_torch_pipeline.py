@@ -173,14 +173,18 @@ def test_cli_fails_without_outputs_or_gpu(tmp_path, capsys):
 
 
 def test_params_reject_unported_extensions_and_bad_ranges():
+    """The two extensions are accepted and carried across from the JAX
+    package's params (the TPU execution knobs are dropped); the reference
+    setters' ranges and edge_thresh >= 1 are enforced."""
     from sift3d_tpu.params import DetectorParams as JaxParams
-    with pytest.raises(NotImplementedError):
-        st.DetectorParams(refine_subvoxel=True)
-    with pytest.raises(NotImplementedError):
-        st.DetectorParams(edge_thresh=10.0)
-    with pytest.raises(NotImplementedError):
-        st.from_jax_params(dataclasses.asdict(
-            JaxParams(refine_subvoxel=True)))
+    p = st.DetectorParams(refine_subvoxel=True, edge_thresh=10.0)
+    assert p.refine_subvoxel and p.edge_thresh == 10.0 and p.extensions
+    assert not st.DetectorParams().extensions
+    p = st.from_jax_params(dataclasses.asdict(
+        JaxParams(refine_subvoxel=True, edge_thresh=4.0)))
+    assert p.refine_subvoxel and p.edge_thresh == 4.0
+    with pytest.raises(ValueError):
+        st.DetectorParams(edge_thresh=0.5)
     with pytest.raises(ValueError):
         st.DetectorParams(peak_thresh=0.0)
     with pytest.raises(ValueError):
@@ -189,6 +193,7 @@ def test_params_reject_unported_extensions_and_bad_ranges():
         JaxParams(peak_thresh=0.2, cuboid_extrema=True,
                   conv_precision="highest")))
     assert p.peak_thresh == 0.2 and p.cuboid_extrema
+    assert not p.extensions
 
 
 def test_flat_volume_gives_no_keypoints():

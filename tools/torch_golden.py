@@ -14,6 +14,19 @@ close, f32 sums taken in two orders move R past the 1e-5 bar, and
 chip_smoke.py holds such a row to R64 instead. chip_smoke.py holds the
 port's GPU run against these files.
 
+--refine and --edge-thresh R turn on the two extensions (subvoxel
+refinement, Hessian edge rejection): the file is then
+torch_golden_refine{size}.npz (refine128 is in the repository, with
+--edge-thresh 10), its coordinates fractional and R64 taken around the
+fractional centers.
+
+--register N writes torch_golden_register{N}.npz instead: the rotated and
+translated N^3 pair of tools/bench_registration.py (make_pair with
+np.random.default_rng(3)), registered by the JAX package with the default
+parameters and with refine_subvoxel=True. It holds the true affine, each
+configuration's affine, match and inlier counts, and the JAX-warped
+moving volume sampled every 7th voxel along each axis.
+
 XLA:CPU contracts the blur's multiply-then-add chain (pyramid._diag_pass)
 into fused multiply-adds under jit on CPUs with FMA, which moves the
 pyramid by ulps away from the eager (and the port's) arithmetic. The
@@ -21,7 +34,8 @@ script therefore caps the XLA:CPU instruction set at SSE4.2, which has no
 FMA: the jitted pyramid then equals the eager one bit for bit.
 
 Usage: python tools/torch_golden.py [--dense] [--size N] [--units X,Y,Z]
-                                    [--out PATH]
+                                    [--refine] [--edge-thresh R]
+                                    [--register N] [--out PATH]
 """
 
 from __future__ import annotations
@@ -37,14 +51,21 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-def f64_sum_R(levels, lvl, coords, sd, units, params, sd_max: float):
+# Every 7th voxel along each axis of a registration golden's moving volume.
+MOVING_STRIDE = 7
+
+
+def f64_sum_R(levels, lvl, coords, sd, units, params, sd_max: float,
+              centers=None):
     """R f32[K, 3, 3] of K keypoints of one octave, with the moment sums in
     f64 as the C reference accumulates them (sift.c:978-983): the JAX
     package's assign_orientations under jax.enable_x64 on the levels
     f32[L, nx, ny, nz] widened to f64, so the gradients are f64 differences
     of the f32 samples and the structure tensor, the eigensolver and R run
     in f64; the weights and loop bounds stay f32. lvl i32[K] indexes
-    levels, coords i32[K, 3], sd f32[K] <= sd_max."""
+    levels, coords i32[K, 3] the window anchors, sd f32[K] <= sd_max;
+    centers f32[K, 3], where given, the fractional window centers (within
+    a voxel of the anchors; the windows take the fractional margin)."""
     import jax
     import jax.numpy as jnp
     from sift3d_tpu.orientation import assign_orientations
@@ -53,9 +74,44 @@ def f64_sum_R(levels, lvl, coords, sd, units, params, sd_max: float):
             jnp.asarray(np.asarray(levels, np.float64)),
             jnp.asarray(coords, jnp.int32), jnp.ones(len(coords), bool),
             jnp.asarray(sd, jnp.float32), tuple(units), params,
+            centers=(None if centers is None
+                     else jnp.asarray(centers, jnp.float32)),
             sd_max=sd_max, level_index=jnp.asarray(lvl, jnp.int32),
-            fractional_centers=False, use_pallas=False)
+            fractional_centers=centers is not None, use_pallas=False)
         return np.asarray(ori.R)
+
+
+def register_golden(n: int, out: Path) -> None:
+    """The registration golden of the N^3 pair (see the module notes)."""
+    from bench_registration import affine_corner_error, make_pair
+    from sift3d_tpu import DetectorParams, SIFT3D
+    from sift3d_tpu.registration import register
+    fixed, moving, A_true = make_pair(n, np.random.default_rng(3))
+    rows = dict(size=np.int32(n), A_true=A_true,
+                moving_stride=np.int32(MOVING_STRIDE),
+                moving_sample=np.asarray(moving.data)[::MOVING_STRIDE,
+                                                      ::MOVING_STRIDE,
+                                                      ::MOVING_STRIDE])
+    for cfg, ext in (("default", {}), ("refined", {"refine_subvoxel": True})):
+        params = DetectorParams(gpyr_impl="incremental", extrema_impl="xla",
+                                **ext)
+        t0 = time.perf_counter()
+        # A detector pair takes the per-pair path, whose numerics the
+        # batched one repeats (sift3d_tpu/registration.py:207-210).
+        res = register(fixed, moving, num_iter=500,
+                       detectors=(SIFT3D(params), SIFT3D(params)))
+        dt = time.perf_counter() - t0
+        err = affine_corner_error(res.affine, A_true, n)
+        rows.update({f"{cfg}_affine": res.affine,
+                     f"{cfg}_matches": np.int32(res.num_matches),
+                     f"{cfg}_inliers": np.int32(res.num_inliers),
+                     f"{cfg}_err": np.float64(err)})
+        print(f"register{n} {cfg}: {res.num_matches} matches, "
+              f"{res.num_inliers} inliers, corner error {err:.4f} vox, JAX "
+              f"CPU {dt:.1f} s")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(out, **rows)
+    print(f"-> {out} ({out.stat().st_size} bytes)")
 
 
 def main(argv=None) -> int:
@@ -64,17 +120,30 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--units", default="1,1,1",
                     type=lambda s: tuple(float(u) for u in s.split(",")))
+    ap.add_argument("--refine", action="store_true",
+                    help="subvoxel refinement on")
+    ap.add_argument("--edge-thresh", type=float, default=None,
+                    help="Hessian edge rejection at this eigenvalue ratio")
+    ap.add_argument("--register", type=int, metavar="N",
+                    help="the registration golden of the N^3 pair")
     ap.add_argument("--out", type=Path, help="write here instead")
     args = ap.parse_args(argv)
     units = args.units
-    cell = ("dense" if args.dense
+    ext = args.refine or args.edge_thresh is not None
+    cell = ("dense" if args.dense else "refine" if ext
             else "sparse" if units == (1.0, 1.0, 1.0) else "aniso")
+    if args.register:
+        cell, args.size = "register", args.register
     out = args.out or (REPO / "tests" / "data"
                        / f"torch_golden_{cell}{args.size}.npz")
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_cpu_max_isa=SSE4_2").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
+    if args.register:
+        sys.path.insert(0, str(REPO / "tools"))
+        register_golden(args.register, out)
+        return 0
     from bench import make_bench_volume, make_dense_volume
     from sift3d_tpu import DetectorParams, SIFT3D
     from sift3d_tpu.volume import Volume
@@ -82,7 +151,9 @@ def main(argv=None) -> int:
     vol = Volume.from_array(
         (make_dense_volume if args.dense else make_bench_volume)(args.size),
         units=units)
-    params = DetectorParams(gpyr_impl="incremental", extrema_impl="xla")
+    params = DetectorParams(gpyr_impl="incremental", extrema_impl="xla",
+                            refine_subvoxel=args.refine,
+                            edge_thresh=args.edge_thresh)
     det = SIFT3D(params)
     t0 = time.perf_counter()
     kp = det.detect_keypoints(vol)
@@ -93,13 +164,20 @@ def main(argv=None) -> int:
     for o in np.unique(kp.octave):
         idx = np.nonzero(kp.octave == o)[0]
         scales = np.asarray(det._plan.scales[o][1:1 + nl], np.float32)
+        # With an extension on, the keypoint's own (refined) scale and
+        # center; windows sized as the JAX package sizes them then.
+        sd = kp.sd[idx] if ext else scales[kp.level[idx]]
+        sd_max = float(scales.max()) * (2.0 ** (1.0 / nl) if ext else 1.0)
         R64[idx] = f64_sum_R(np.asarray(det._gpyr[o])[1:1 + nl],
-                             kp.level[idx], kp.coords[idx],
-                             scales[kp.level[idx]], det._plan.level_units(o),
-                             params, float(scales.max()))
+                             kp.level[idx], np.rint(kp.coords[idx]), sd,
+                             det._plan.level_units(o), params, sd_max,
+                             centers=kp.coords[idx] if ext else None)
     out.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(
         out, size=np.int32(args.size), units=np.asarray(units, np.float64),
+        refine_subvoxel=np.bool_(args.refine),
+        edge_thresh=np.float64(np.nan if args.edge_thresh is None
+                               else args.edge_thresh),
         coords=kp.coords, octave=kp.octave, level=kp.level, sd=kp.sd,
         strength=kp.strength, R=kp.R, R64=R64, desc_xyz=desc.xyz,
         desc_sd=desc.sd, desc=desc.data)

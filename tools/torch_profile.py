@@ -1,20 +1,24 @@
 """Where the time goes in the PyTorch port's main path on one GPU.
 
 Runs SIFT3D(device="cuda") detect_keypoints + extract_descriptors on a
-256^3 bench phantom (bench.make_bench_volume, or make_dense_volume with
---dense, built on the card by sift3d_tpu_torch.phantoms) and prints:
+--size (256) bench phantom (bench.make_bench_volume, or make_dense_volume
+with --dense, built on the card by sift3d_tpu_torch.phantoms), with
+--refine under DetectorParams(refine_subvoxel=True, edge_thresh=10.0)
+(BASELINE config 2), and prints:
  - the wall time of detect and of describe, each ending in a device sync
    (median of 7 runs after a warm-up);
  - from torch.profiler over one more run: device time by kernel, its sum,
    and that sum as a share of the profiled wall time (the device's busy
    share; the rest is host time with the device idle), and the number of
    device operations launched (kernels, copies and fills: the sum of
-   `count` over the device events);
+   `count` over the device events), and the host operations that took
+   the most self CPU time;
  - torch.cuda.max_memory_allocated() over describe, beside what was
    allocated when describe started (the pyramid it reads).
 --table PATH also writes the profiler's full table there.
 
-Usage: python tools/torch_profile.py [--dense] [--table PATH]
+Usage: python tools/torch_profile.py [--dense] [--size N] [--refine]
+                                     [--table PATH]
 """
 
 from __future__ import annotations
@@ -28,7 +32,6 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-SIZE = 256
 REPEATS = 7
 
 
@@ -42,6 +45,9 @@ def _device_us(evt) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dense", action="store_true")
+    ap.add_argument("--size", type=int, default=256)
+    ap.add_argument("--refine", action="store_true",
+                    help="subvoxel refinement and edge rejection on")
     ap.add_argument("--table", metavar="PATH",
                     help="write the full profiler table to this file")
     args = ap.parse_args(argv)
@@ -60,10 +66,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
-    cell = f"{'dense' if args.dense else 'sparse'}{SIZE}"
-    vol = bench_volume("dense" if args.dense else "sparse", SIZE,
+    cell = (f"{'dense' if args.dense else 'sparse'}{args.size}"
+            f"{' refined' if args.refine else ''}")
+    vol = bench_volume("dense" if args.dense else "sparse", args.size,
                        "cuda").cpu().numpy()
-    det = st.SIFT3D(st.DetectorParams(), "cuda")
+    params = (st.DetectorParams(refine_subvoxel=True, edge_thresh=10.0)
+              if args.refine else st.DetectorParams())
+    det = st.SIFT3D(params, "cuda")
 
     def run():
         t0 = time.perf_counter()
@@ -111,6 +120,13 @@ def main(argv=None) -> int:
           f"(detect + describe)")
     for e in events[:15]:
         print(f"    {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print("  host operations by self CPU time:")
+    for e in host[:12]:
+        print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
     if args.table:
         out = Path(args.table)
