@@ -20,7 +20,26 @@ descriptor within 1% relative L2; refined, coordinates within 1e-5, scales
 translated 192^3 pair of tools/bench_registration.py (BASELINE config 4),
 built on the card, with default and with refined parameters, against the
 JAX golden: the warped volume, the matches and inliers, and the affine's
-corner error against the truth and against JAX's.
+corner error against the truth and against JAX's, by register (timed) and
+by register_batch of one pair.
+
+The batch path: the blur, extrema, orientation and descriptor kernels over
+a batch of eight distinct 256^3 bench phantoms (four sparse, four dense;
+eight volumes, as batch256x4 gives them) at octave-0 shapes against their
+per-volume plain versions (the blur bit for bit with each volume's max
+|DoG|, the extrema keys each volume's offset by its index, the
+orientation and descriptor kernels on the batch's flattened level stack,
+past 2^31 bytes, to the single-volume bars); then **batch256x4**
+(BASELINE config 5): the four 256^3 pairs of tools/bench_registration.py,
+built on the card, registered by register_batch, each volume's rows and
+descriptors against its own detect_keypoints + extract_descriptors, each
+pair against the JAX golden (tests/data/torch_golden_batch256x4.npz: the
+matches, the inliers with RANSAC fed JAX's own hypothesis indices, the
+corner error with the port's), with the launches per batch against one
+volume's, pairs/s, ms per volume and peak memory;
+last the batch loader: the eight volumes written as NIfTI (one .nii.gz)
+and read back by BatchVolumeLoader(device="cuda") into
+detect_keypoints_batch, identical to the in-memory batch.
 
 Prints the card (nvidia-smi name, power limit), versions and build time,
 one line per phase, a JSON line of per-kernel results (time, plain time,
@@ -38,6 +57,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -56,6 +76,13 @@ GOLDENS = {cell: ROOT / "tests" / "data" / f"torch_golden_{cell}.npz"
 # BASELINE config 4: registration of the 192^3 pair, two configurations.
 REG_GOLDEN = ROOT / "tests" / "data" / "torch_golden_register192.npz"
 REG_CONFIGS = {"default": {}, "refined": {"refine_subvoxel": True}}
+# BASELINE config 5: the batch of four 256^3 pairs.
+BATCH_GOLDEN = ROOT / "tests" / "data" / "torch_golden_batch256x4.npz"
+# The batched kernels' volumes: (phantom, seed; None = bench.py's own);
+# eight, the volumes of batch256x4's one batch.
+BATCH_PHANTOMS = (("sparse", None), ("dense", None), ("sparse", 3),
+                  ("dense", 5), ("sparse", 11), ("dense", 13),
+                  ("sparse", 17), ("dense", 19))
 REPS = 7
 KERNEL_INNER = 20
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
@@ -164,7 +191,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         die("no CUDA device: this smoke test runs the port on a GPU")
     needed = [ROOT / "sift3d_tpu_torch", ROOT / "bench.py",
-              *GOLDENS.values(), REG_GOLDEN]
+              *GOLDENS.values(), REG_GOLDEN, BATCH_GOLDEN]
     missing = [str(p.relative_to(ROOT)) for p in needed if not p.exists()]
     if missing:
         die(f"run from a checkout of the repository (missing {missing})")
@@ -176,7 +203,10 @@ def main() -> int:
     import torch.nn.functional as F
 
     import bench
+    from sift3d_tpu_torch import native, registration
     from sift3d_tpu_torch.detect import detect_extrema_octave
+    from sift3d_tpu_torch.io import BatchVolumeLoader, write_volume
+    from sift3d_tpu_torch.io.loader import _read_batch
     from sift3d_tpu_torch.ops import _build
     from sift3d_tpu_torch.ops import blur_kernel as bk
     from sift3d_tpu_torch.ops import desc_kernel as dk
@@ -199,6 +229,10 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s) -> {_build.BUILD_DIR}",
           flush=True)
+    t0 = time.perf_counter()
+    native.lib()
+    print(f"native IO runtime {time.perf_counter() - t0:.1f} s -> "
+          f"{native.BUILD_DIR / native.LIB_NAME}", flush=True)
 
     dev = torch.device("cuda")
     params = st.DetectorParams()
@@ -334,7 +368,7 @@ def main() -> int:
         def kernel():
             _build.call("s3d_extrema_candidates", dog.data_ptr(),
                         thr.data_ptr(), keys.data_ptr(), counts.data_ptr(),
-                        keys.numel(), nl, nx, ny, nz, 0,
+                        keys.numel(), 1, nl, nx, ny, nz, 0,
                         _build.stream_ptr(dog))
         ms = cuda_ms(torch, kernel, inner=KERNEL_INNER)
         wms = cuda_ms(torch, lambda: ek.extrema_candidates(dog, thr))
@@ -378,11 +412,15 @@ def main() -> int:
         sphere = 4.0 / 3.0 * np.pi * (rad / np.prod(units) ** (1 / 3)) ** 3
         return float(box.sum()), float(np.minimum(sphere, box).sum())
 
-    def orient_check(name, cand, sd, centers, sd_max, fractional):
+    def orient_check(name, cand, sd, centers, sd_max, fractional,
+                     levels=None, lvl=None):
         """s3d_orient vs orient_plain on one octave's candidates, at their
-        integer or at fractional centers; timed."""
-        levels = st_["gpyr"][1:1 + nl]
-        args = (levels, cand.level, cand.coords, sd, plan.units, params)
+        integer or at fractional centers; timed. levels, lvl: a batch's
+        flattened level stack and the candidates' levels in it (default
+        octave 0's keypoint levels and cand.level)."""
+        if levels is None:
+            levels, lvl = st_["gpyr"][1:1 + nl], cand.level
+        args = (levels, lvl, cand.coords, sd, plan.units, params)
         kw = dict(centers=centers, sd_max=sd_max, fractional=fractional)
         got = ok.orient(*args, **kw)
         ref = ok.orient_plain(*args, **kw)
@@ -487,10 +525,13 @@ def main() -> int:
                  "sift3d_tpu/orientation.py:110", 0.0, ms, pms,
                  ok.eigh_launches, bound(84 * K, EIGH_OPS * K), lms)
 
-    def desc_check(name, lvl, centers, R, sd, sd_max, fractional):
+    def desc_check(name, lvl, centers, R, sd, sd_max, fractional,
+                   levels=None):
         """s3d_desc_fused vs prep_windows + desc_hist_plain, 3 runs;
-        timed."""
-        levels = st_["gpyr"][1:1 + nl]
+        timed. levels: a batch's flattened level stack, which lvl indexes
+        (default octave 0's keypoint levels)."""
+        if levels is None:
+            levels = st_["gpyr"][1:1 + nl]
         args = (levels, lvl, centers, R, sd, plan.units, params, sd_max,
                 fractional)
         ref = dk.desc_fused_plain(*args)
@@ -530,6 +571,333 @@ def main() -> int:
         f = st_["frac"]
         desc_check("desc_fused_fractional", f["lvl"], f["centers"], f["R"],
                    f["sd"], f["sd_max"], True)
+
+    def batch_kernel_phase():
+        """The four kernels over a batch of BATCH_PHANTOMS at 256^3, octave
+        0, against their per-volume plain versions. Eight volumes' level
+        stack is 805 M floats: the orientation and descriptor kernels'
+        offsets into it pass 2^31 bytes."""
+        B = len(BATCH_PHANTOMS)
+        xb = scale_to_unit(torch.stack([bench_volume(kind, 256, dev, seed)
+                                        for kind, seed in BATCH_PHANTOMS]))
+        assert torch.equal(xb[0], x)      # the sparse256 bench phantom
+        L = plan.num_gpyr_levels
+        dims = tuple(plan.octave_dims[0])
+        N = xb[0].numel()
+        gpyr = torch.empty((B, L) + dims, device=dev)
+        dog = torch.empty((B, L - 1) + dims, device=dev)
+        dmax = torch.zeros((B, L - 1), device=dev)
+        tmp = torch.empty((B,) + dims, device=dev)
+        sums = {k: [0.0] * 5 for k in ("blur_x", "blur_yz_dog")}
+        for i in range(L):
+            src = xb if i == 0 else gpyr[:, i - 1]
+            diags = bk._diags(plan, 0, i, dev)
+            (wx, lox), (wy, loy), (wz, loz) = diags
+            bx, by, bz = (wd.shape[1] for wd, _ in diags)
+            prev, dg, m = ((None, None, None) if i == 0 else
+                           (src, dog[:, i - 1], dmax[:, i - 1]))
+            n0 = (bk.blur_x_launches, bk.blur_yz_dog_launches)
+            bk.blur_x(src, wx, lox, tmp)
+            bk.blur_yz_dog(tmp, wy, loy, wz, loz, gpyr[:, i], prev, dg, m)
+            assert (bk.blur_x_launches - n0[0],
+                    bk.blur_yz_dog_launches - n0[1]) == (1, 1)
+            for b in range(B):
+                xr = bk.blur_x_plain(src[b], wx, lox)
+                assert torch.equal(tmp[b], xr), (i, b)
+                cr, dr, mr = bk.blur_yz_dog_plain(
+                    xr, wy, loy, wz, loz, None if i == 0 else src[b])
+                assert torch.equal(gpyr[b, i], cr), (i, b)
+                if i:
+                    assert torch.equal(dog[b, i - 1], dr), (i, b)
+                    assert torch.equal(dmax[b, i - 1], mr), (i, b)
+            srcc = src.contiguous()
+            w = wx[dims[0] // 2].reshape(1, 1, bx, 1, 1).contiguous()
+            xms = cuda_ms(torch, lambda: bk.blur_x(src, wx, lox, tmp),
+                          inner=KERNEL_INNER)
+            yzms = cuda_ms(torch, lambda: bk.blur_yz_dog(
+                tmp, wy, loy, wz, loz, gpyr[:, i], prev, dg, m),
+                inner=KERNEL_INNER)
+            pxms = cuda_ms(torch, lambda: [bk.blur_x_plain(src[b], wx, lox)
+                                           for b in range(B)], reps=3)
+            pyzms = cuda_ms(torch, lambda: [bk.blur_yz_dog_plain(
+                tmp[b], wy, loy, wz, loz, None if i == 0 else src[b])
+                for b in range(B)], reps=3)
+            lms = cuda_ms(torch, lambda: F.conv3d(
+                srcc[:, None], w, padding=(-lox, 0, 0)), inner=KERNEL_INNER)
+            dogv = 1 if i else 0
+            bxb = (8 * B * N, 2 * bx * B * N)
+            yzb = ((8 + 8 * dogv) * B * N, (2 * (by + bz) + 3 * dogv) * B * N)
+            for key, bb, ms, pms, lm in (("blur_x", bxb, xms, pxms, lms),
+                                         ("blur_yz_dog", yzb, yzms, pyzms,
+                                          0.0)):
+                for j, v in enumerate((bb[0], bb[1], ms, pms, lm)):
+                    sums[key][j] += v / L
+            print(f"       batch of {B}, level {i}: x {xms:.4f} ms, y/z"
+                  f"{'+DoG' * dogv} {yzms:.4f} ms; per-volume plain x "
+                  f"{pxms:.4f}, y/z {pyzms:.4f} ms; conv3d x (N={B}) "
+                  f"{lms:.4f} ms", flush=True)
+        print(f"       blur and DoG of the batch bit-exact to each volume's "
+              f"plain version, max |DoG| per volume {dmax[:, 0].tolist()} "
+              f"(level 0)", flush=True)
+        for key, lib in (("blur_x", True), ("blur_yz_dog", False)):
+            nbytes, ops, ms, pms, lm = sums[key]
+            s.record(f"{key}_batch{B}", "sift3d_tpu_torch/csrc/blur.cu",
+                     "sift3d_tpu/ops/blur_kernel.py:337", 0.0, ms, pms,
+                     getattr(bk, f"{key}_launches"), bound(nbytes, ops),
+                     lm if lib else None)
+
+        # Extrema: one launch for the batch, keys offset by the volume.
+        thr = (torch.tensor(params.peak_thresh, device=dev)
+               * dmax[:, 1:1 + nl]).contiguous()
+        per = nl * N
+        found = 0
+        for cap in (None, 1):
+            n0 = ek.launches
+            keys, counts = ek.extrema_candidates(dog, thr, False, cap)
+            assert ek.launches - n0 == (1 if cap is None else 2)
+            keys = torch.sort(keys).values
+            for b in range(B):
+                rk, rc = ek.extrema_candidates_plain(dog[b], thr[b])
+                mine = keys[(keys >= b * per) & (keys < (b + 1) * per)]
+                assert torch.equal(mine - b * per, torch.sort(rk).values), b
+                assert torch.equal(counts[b], rc), b
+            found = keys.numel()
+        print(f"       extrema of the batch: {found} candidates "
+              f"({counts.sum(dim=1).tolist()} per volume), each volume's "
+              f"keys offset by b; also at capacity 1", flush=True)
+        kbuf = torch.empty(ek.default_capacity(dog.shape), dtype=torch.int64,
+                           device=dev)
+        cbuf = torch.zeros(1 + B * nl, dtype=torch.int64, device=dev)
+
+        def kernel():
+            _build.call("s3d_extrema_candidates", dog.data_ptr(),
+                        thr.data_ptr(), kbuf.data_ptr(), cbuf.data_ptr(),
+                        kbuf.numel(), B, nl, *dims, 0,
+                        _build.stream_ptr(dog))
+        ms = cuda_ms(torch, kernel, inner=KERNEL_INNER)
+        pms = cuda_ms(torch, lambda: [ek.extrema_candidates_plain(
+            dog[b], thr[b]) for b in range(B)], reps=3)
+        cen = dog[:, 1:1 + nl]
+        t = thr.reshape(B, nl, 1, 1, 1)
+        past = ((cen > t) | (cen < -t)).reshape(B, nl, -1).sum(dim=2)
+        passing = int(past.sum())
+        outer = int(past[:, 0].sum()) + int(past[:, -1].sum())
+        s.record(f"extrema_candidates_batch{B}",
+                 "sift3d_tpu_torch/csrc/extrema.cu",
+                 "sift3d_tpu/ops/extrema_kernel.py:384", 0.0, ms, pms,
+                 ek.launches, bound(4 * cen.numel() + 4 * outer + 8 * found
+                                    + 8 * (1 + B * nl),
+                                    2 * cen.numel() + 16 * passing))
+
+        # Orientation and descriptors on the flattened [B * L] stack,
+        # keypoint level l of volume b at stack level b * L + 1 + l.
+        cand = detect_extrema_octave(dog, dmax, params)
+        scales = torch.tensor(plan.scales[0][1:1 + nl], device=dev)
+        sd = scales[cand.level].contiguous()
+        centers = cand.coords.float()
+        levels = gpyr.reshape((B * L,) + dims)
+        lvl = cand.batch * L + 1 + cand.level
+        got, acc = orient_check(f"orient_batch{B}", cand, sd, centers,
+                                plan.scales[0][nl], False, levels, lvl)
+        for b in range(B):   # each volume's own launch gives the same bits
+            sel = cand.batch == b
+            one = ok.orient(gpyr[b, 1:1 + nl], cand.level[sel],
+                            cand.coords[sel], sd[sel].contiguous(),
+                            plan.units, params, centers=centers[sel])
+            assert torch.equal(one.A, got.A[sel]) and \
+                torch.equal(one.R, got.R[sel]), b
+        desc_check(f"desc_fused_batch{B}", lvl[acc],
+                   centers[acc].contiguous(), got.R[acc].contiguous(),
+                   sd[acc].contiguous(), plan.scales[0][nl], False, levels)
+        del gpyr, dog, tmp, xb
+
+    def make_pair_on_card(n, rng, fixed):
+        """tools/bench_registration.py make_pair's draws from rng (the
+        angle, then the shift) and the moving volume, warped on the card:
+        (moving Volume, A_true f32[3, 4])."""
+        th = np.deg2rad(rng.uniform(6, 10))
+        Rz = np.array([[np.cos(th), -np.sin(th), 0],
+                       [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+        c = np.array([(n - 1) / 2.0] * 3)
+        t = rng.uniform(-4, 4, 3)
+        A = np.zeros((3, 4), np.float32)
+        A[:, :3] = Rz
+        A[:, 3] = c - Rz @ c + t
+        M = np.eye(4)
+        M[:3] = A
+        moving = st.warp_volume(fixed, np.linalg.inv(M)[:3].astype(np.float32),
+                                (n, n, n), device=dev)
+        return moving, A
+
+    def check_moving(moving, sample, stride, what):
+        samp = moving.data[::stride, ::stride, ::stride].cpu().numpy()
+        vmax = float(moving.data.abs().max())
+        err = float(np.abs(samp - sample).max())
+        print(f"       {what}: every {stride}th voxel ({samp.size}) vs the "
+              f"JAX golden's: max abs diff {err:.3g} (max |vol| {vmax:.3g})",
+              flush=True)
+        assert err <= 1e-5 * vmax
+
+    def batch_pairs_phase():
+        """The pairs of BASELINE config 5: after the 192^3 pair's draws,
+        make_pair(256) four times from default_rng(3), on the card."""
+        g = np.load(BATCH_GOLDEN)
+        n, P = int(g["size"]), int(g["pairs"])
+        rng = np.random.default_rng(3)
+        rng.uniform(6, 10)          # the 192^3 pair's angle and shift
+        rng.uniform(-4, 4, 3)
+        fixed = st.Volume.from_array(bench_volume("sparse", n, dev),
+                                     device=dev)
+        movs, As = [], []
+        for b in range(P):
+            moving, A = make_pair_on_card(n, rng, fixed)
+            assert np.array_equal(A, g[f"A_true{b}"]), b
+            check_moving(moving, g[f"moving_sample{b}"],
+                         int(g["moving_stride"]), f"pair {b} moving volume")
+            movs.append(moving.data)
+            As.append(A)
+        st_["batch"] = (fixed.data[None].expand(P, -1, -1, -1).contiguous(),
+                        torch.stack(movs), As, g)
+
+    def batch_register_phase():
+        fixed_b, moving_b, As, g = st_["batch"]
+        n, P = int(g["size"]), len(As)
+        p = st.DetectorParams()
+        det = st.SIFT3D(p, device="cuda")
+        vols = torch.cat([fixed_b, moving_b])
+        # Each volume's rows and descriptors against its own run.
+        kps = det.detect_keypoints_batch(vols)
+        dss = det.extract_descriptors_batch(kps)
+        st_["batch_kps"] = kps
+        one = st.SIFT3D(p, device="cuda")
+        bit_equal, worst = 0, 0.0
+        for b in range(2 * P):
+            kp = one.detect_keypoints(vols[b])
+            ds = one.extract_descriptors(kp)
+            for f in ("coords", "octave", "level", "sd", "strength", "R"):
+                assert np.array_equal(getattr(kp, f), getattr(kps[b], f)), \
+                    (b, f)
+            assert np.array_equal(ds.xyz, dss[b].xyz), b
+            rel = (np.linalg.norm(ds.data - dss[b].data, axis=1)
+                   / np.linalg.norm(ds.data, axis=1))
+            worst = max(worst, float(rel.max()))
+            bit_equal += int(np.sum(np.all(ds.data == dss[b].data, axis=1)))
+        total = sum(len(k) for k in kps)
+        print(f"       batch of {2 * P} volumes: keypoint rows identical to "
+              f"each volume's own detect_keypoints "
+              f"({[len(k) for k in kps]}); descriptors: {bit_equal} of "
+              f"{total} bit-equal, max rel-L2 {worst:.3g} (the descriptor "
+              f"kernel adds with atomics, in an order that changes from "
+              f"run to run)", flush=True)
+        assert worst <= 1e-5
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counters()
+        res = st.register_batch(fixed_b, moving_b, num_iter=500, det=det)
+        launches = read_counters(p, "batch256x4 register_batch")
+        peak = torch.cuda.max_memory_allocated() - base
+        assert 2 * P == len(BATCH_PHANTOMS)   # the batched kernels' rows
+        for name, k in launches.items():
+            row = f"{name}_batch{2 * P}"
+            s.kernels.setdefault(row, {"name": row})["launches"] = k
+        single = st_["sparse256_launches"]
+        sub = det.sub_batch
+        subs = -(-2 * P // sub)
+        print(f"       launches per batch of {2 * P} volumes ({subs} "
+              f"sub-batch(es) of {sub}): {launches}; one 256^3 volume: "
+              f"{single}", flush=True)
+        for name in ("blur_x", "blur_yz_dog", "extrema_candidates"):
+            assert launches[name] == subs * single[name], name
+        for name in ("orient", "desc_fused"):
+            assert launches[name] <= subs * plan.num_octaves, name
+        # The same matching and RANSAC on JAX's own hypotheses (the
+        # golden's idx{b}, drawn by JAX's PRNG) give JAX's inliers; the
+        # port's own hypotheses (a seeded CPU generator) are held to the
+        # corner-error bar.
+        jax_idx = {int(g[f"matches{b}"]): g[f"idx{b}"].astype(np.int64)
+                   for b in range(P)}
+        fed = registration._register_pairs(
+            dss[P:], kps[P:], dss[:P], kps[:P], 0.8, 5.0, 500, 0, dev,
+            sample=lambda gen, num_iter, m: torch.from_numpy(jax_idx[m]))
+        for b, (r, f) in enumerate(zip(res, fed)):
+            err = corner_error(r.affine, As[b], n)
+            jerr = float(g[f"err{b}"])
+            vs_jax = corner_error(r.affine, g[f"affine{b}"], n)
+            fed_vs_jax = corner_error(f.affine, g[f"affine{b}"], n)
+            print(f"       pair {b}: matches {r.num_matches} (JAX "
+                  f"{int(g[f'matches{b}'])}); on JAX's hypotheses inliers "
+                  f"{f.num_inliers} (JAX {int(g[f'inliers{b}'])}), corner "
+                  f"error vs JAX's affine {fed_vs_jax:.4f} vox; on the "
+                  f"port's own, inliers {r.num_inliers}, corner error vs "
+                  f"truth {err:.4f} vox (JAX {jerr:.4f}), vs JAX's affine "
+                  f"{vs_jax:.4f} vox", flush=True)
+            assert r.num_matches == f.num_matches == int(g[f"matches{b}"])
+            assert f.num_inliers == int(g[f"inliers{b}"])
+            assert fed_vs_jax <= 0.25
+            assert np.all(np.isfinite(r.affine)) and err <= jerr + 0.25
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.register_batch(fixed_b, moving_b, num_iter=500, det=det)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(walls)
+        print(f"       batch256x4 register_batch: median {med:.2f} ms wall "
+              f"over 3 runs (min {min(walls):.2f}, max {max(walls):.2f}): "
+              f"{P / med * 1e3:.3f} pairs/s, {med / (2 * P):.2f} ms per "
+              f"volume; peak memory {peak / 2 ** 20:.1f} MiB above the "
+              f"{base / 2 ** 20:.1f} MiB held before; on {card}", flush=True)
+
+    def loader_phase():
+        """The batch's eight volumes written as NIfTI (the last .nii.gz),
+        read back by BatchVolumeLoader onto the card, into
+        detect_keypoints_batch."""
+        fixed_b, moving_b, _, _ = st_["batch"]
+        vols = torch.cat([fixed_b, moving_b])
+        ref = st_["batch_kps"]
+        det = st.SIFT3D(params, device="cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = []
+            for i, v in enumerate(vols.cpu().numpy()):
+                paths.append(Path(tmp) / (f"v{i}.nii.gz" if i == len(vols) - 1
+                                          else f"v{i}.nii"))
+                write_volume(paths[-1], v)
+            for bsz in (len(paths), len(paths) // 2):
+                t0 = time.perf_counter()
+                arrivals, got = [], []
+                for bv, units in BatchVolumeLoader(paths, batch_size=bsz,
+                                                   device="cuda"):
+                    torch.cuda.current_stream().synchronize()
+                    arrivals.append((time.perf_counter() - t0) * 1e3)
+                    assert bv.is_cuda and units == (1.0, 1.0, 1.0)
+                    got.append(bv)
+                    if bsz == len(paths):
+                        kps = det.detect_keypoints_batch(bv, units)
+                assert torch.equal(torch.cat(got), vols)
+                print(f"       loader, batches of {bsz}: ready at "
+                      f"{[round(a, 2) for a in arrivals]} ms", flush=True)
+            for a, b in zip(kps, ref):
+                for f in ("coords", "octave", "level", "sd", "strength",
+                          "R"):
+                    assert np.array_equal(getattr(a, f), getattr(b, f)), f
+            # The read and the upload of one batch of eight, apart.
+            pinned = torch.empty(tuple(vols.shape), pin_memory=True)
+            rms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                _read_batch([str(p) for p in paths], tuple(vols.shape[1:]),
+                            0, pinned.numpy())
+                rms.append((time.perf_counter() - t0) * 1e3)
+            ums = cuda_ms(torch, lambda: pinned.to(dev, non_blocking=True),
+                          reps=3)
+        print(f"       loader: {len(paths)} x 256^3 volumes (7 .nii, 1 "
+              f".nii.gz) read into detect_keypoints_batch, keypoints "
+              f"identical to the in-memory batch's; native read of the "
+              f"batch median {statistics.median(rms):.2f} ms, pinned "
+              f"upload {ums:.3f} ms ({vols.numel() * 4 / ums / 1e6:.2f} "
+              f"GB/s) on {card}", flush=True)
 
     counters = [(bk, "blur_x_launches", "blur_x"),
                 (bk, "blur_yz_dog_launches", "blur_yz_dog"),
@@ -572,6 +940,7 @@ def main() -> int:
         desc = det.extract_descriptors(kp)
         launches = read_counters(p, f"main path, {cell}")
         if cell == "sparse256":
+            st_["sparse256_launches"] = launches
             for name, n in launches.items():
                 s.kernels.setdefault(name, {"name": name})["launches"] = n
             # Two blur launches per blurred level (6 + 5 x 5), one extrema
@@ -664,67 +1033,60 @@ def main() -> int:
         inverse of a rotation about z and a shift (default_rng(3))."""
         g = np.load(REG_GOLDEN)
         n = int(g["size"])
-        rng = np.random.default_rng(3)
-        th = np.deg2rad(rng.uniform(6, 10))
-        Rz = np.array([[np.cos(th), -np.sin(th), 0],
-                       [np.sin(th), np.cos(th), 0], [0, 0, 1]])
-        c = np.array([(n - 1) / 2.0] * 3)
-        t = rng.uniform(-4, 4, 3)
-        A = np.zeros((3, 4), np.float32)
-        A[:, :3] = Rz
-        A[:, 3] = c - Rz @ c + t
-        assert np.array_equal(A, g["A_true"])
         fixed = st.Volume.from_array(bench_volume("sparse", n, dev),
                                      device=dev)
-        M = np.eye(4)
-        M[:3] = A
-        moving = st.warp_volume(fixed, np.linalg.inv(M)[:3].astype(np.float32),
-                                (n, n, n), device=dev)
-        stride = int(g["moving_stride"])
-        samp = moving.data[::stride, ::stride, ::stride].cpu().numpy()
-        vmax = float(fixed.data.abs().max())
-        err = float(np.abs(samp - g["moving_sample"]).max())
-        print(f"       warped {n}^3 moving volume vs the JAX golden's every "
-              f"{stride}th voxel ({samp.size}): max abs diff {err:.3g} "
-              f"(max |vol| {vmax:.3g})", flush=True)
-        assert err <= 1e-5 * vmax
+        moving, A = make_pair_on_card(n, np.random.default_rng(3), fixed)
+        assert np.array_equal(A, g["A_true"])
+        check_moving(moving, g["moving_sample"], int(g["moving_stride"]),
+                     f"warped {n}^3 moving volume")
         st_["pair"] = (fixed, moving, A, g)
 
     def register_phase(cfg):
+        """register of the pair (its wall the register yardstick), then
+        register_batch of the pair as a batch of one; both against the
+        JAX golden."""
         fixed, moving, A_true, g = st_["pair"]
         n = int(g["size"])
         p = st.DetectorParams(**REG_CONFIGS[cfg])
         det = st.SIFT3D(p, device="cuda")
-        reset_counters()
-        res = st.register(fixed, moving, num_iter=500, detectors=det,
-                          device="cuda")
-        read_counters(p, f"register {cfg}")
-        err = corner_error(res.affine, A_true, n)
-        jerr = float(g[f"{cfg}_err"])
-        vs_jax = corner_error(res.affine, g[f"{cfg}_affine"], n)
-        print(f"       register{n} {cfg}: matches {res.num_matches} (JAX "
-              f"{int(g[f'{cfg}_matches'])}), inliers {res.num_inliers} (JAX "
-              f"{int(g[f'{cfg}_inliers'])}); corner error vs truth "
-              f"{err:.4f} vox (JAX {jerr:.4f}), vs JAX's affine "
-              f"{vs_jax:.4f} vox", flush=True)
-        assert np.all(np.isfinite(res.affine))
-        assert res.inlier_mask.shape == (res.num_matches,)
-        if cfg == "default":
-            assert err <= jerr + 0.25
-        else:
-            assert err < 1.0 and vs_jax <= 0.25
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st.register(fixed, moving, num_iter=500, detectors=det,
-                        device="cuda")
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"       register {n}^3 pair ({cfg}): median "
-              f"{statistics.median(walls):.2f} ms wall over 3 runs (min "
-              f"{min(walls):.2f}, max {max(walls):.2f}) on {card}",
-              flush=True)
+
+        def run_register():
+            return st.register(fixed, moving, num_iter=500, detectors=det,
+                               device="cuda")
+
+        def run_batch():
+            return st.register_batch(fixed.data[None], moving.data[None],
+                                     num_iter=500, det=det)[0]
+        for what, run in (("register", run_register),
+                          ("register_batch of one pair", run_batch)):
+            reset_counters()
+            res = run()
+            read_counters(p, f"{what}, {cfg}")
+            err = corner_error(res.affine, A_true, n)
+            jerr = float(g[f"{cfg}_err"])
+            vs_jax = corner_error(res.affine, g[f"{cfg}_affine"], n)
+            print(f"       {what}, {n}^3 {cfg}: matches {res.num_matches} "
+                  f"(JAX {int(g[f'{cfg}_matches'])}), inliers "
+                  f"{res.num_inliers} (JAX {int(g[f'{cfg}_inliers'])}); "
+                  f"corner error vs truth {err:.4f} vox (JAX {jerr:.4f}), "
+                  f"vs JAX's affine {vs_jax:.4f} vox", flush=True)
+            assert np.all(np.isfinite(res.affine))
+            assert res.inlier_mask.shape == (res.num_matches,)
+            if cfg == "default":
+                assert err <= jerr + 0.25
+            else:
+                assert err < 1.0 and vs_jax <= 0.25
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            print(f"       {what}, {n}^3 pair ({cfg}): median "
+                  f"{statistics.median(walls):.2f} ms wall over 3 runs (min "
+                  f"{min(walls):.2f}, max {max(walls):.2f}) on {card}",
+                  flush=True)
 
     t_start = time.perf_counter()
     s.phase("blur x and y/z + DoG kernels vs plain, six levels "
@@ -744,8 +1106,20 @@ def main() -> int:
     s.phase("registration pair, 192^3, warped on the card vs JAX golden",
             pair_phase)
     for cfg in REG_CONFIGS:
-        s.phase(f"registration, 192^3, {cfg} params, vs JAX golden",
+        s.phase(f"registration, 192^3, register and register_batch of one "
+                f"pair, {cfg} params, vs JAX golden",
                 lambda cfg=cfg: register_phase(cfg))
+    # The batch phases last: their multi-GiB buffers stay in the caching
+    # allocator and would change the single-volume phases' walls.
+    s.phase(f"batched kernels, {len(BATCH_PHANTOMS)} 256^3 phantoms, vs "
+            f"per-volume plain versions", batch_kernel_phase)
+    torch.cuda.empty_cache()
+    s.phase("batch256x4 pairs, warped on the card vs JAX golden",
+            batch_pairs_phase)
+    s.phase("batch256x4: register_batch of four 256^3 pairs vs per-volume "
+            "runs and JAX golden", batch_register_phase)
+    s.phase("batch loader on the card: NIfTI -> detect_keypoints_batch",
+            loader_phase)
     print(f"all phases {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(s.kernels.values())}), flush=True)

@@ -4,7 +4,10 @@ PyTorch, with hand-written CUDA kernels for Hopper (sm_90a).
 The port of ``sift3d_tpu`` (JAX/Pallas), which stays the reference. The
 device is explicit: ``SIFT3D(params, device="cuda")`` runs the CUDA
 kernels, ``device="cpu"`` their plain PyTorch versions; ``register`` /
-``register_sift3d`` and ``warp_volume`` take the same ``device=``.
+``register_sift3d``, ``register_batch``, ``warp_volume`` and
+``io.BatchVolumeLoader`` take the same ``device=``. A batch of volumes
+runs through ``SIFT3D.detect_keypoints_batch`` and
+``extract_descriptors_batch``.
 Importing this package never imports jax.
 """
 
@@ -22,10 +25,11 @@ from .keypoints import Descriptors, Keypoints  # noqa: E402
 from .params import DetectorParams, from_jax_params  # noqa: E402
 from .pipeline import SIFT3D  # noqa: E402
 from .registration import RegistrationResult, register, \
-    warp_volume  # noqa: E402
+    register_batch, warp_volume  # noqa: E402
 from .volume import Volume, as_volume  # noqa: E402
 
 __all__ = ["SIFT3D", "DetectorParams", "from_jax_params", "Keypoints",
            "Descriptors", "Volume", "as_volume", "detect_keypoints",
-           "detect_and_extract", "register", "register_sift3d",
+           "detect_and_extract", "register", "register_batch",
+           "register_sift3d",
            "warp_volume", "RegistrationResult"]

@@ -5,11 +5,10 @@ remains the primary interface."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .keypoints import Descriptors, Keypoints
-from .params import DESC_NUMEL, DetectorParams
+from .params import DetectorParams
 from .pipeline import SIFT3D
 from .registration import RegistrationResult, register
 
@@ -31,13 +30,7 @@ def detect_and_extract(vol, params: DetectorParams = DetectorParams(),
     kp = det.detect_keypoints(vol)
     if limit:
         kp = kp.sort_by_strength(limit)
-    if len(kp):
-        desc = det.extract_descriptors(kp)
-    else:
-        desc = Descriptors(xyz=np.zeros((0, 3), np.float32),
-                           sd=np.zeros(0, np.float32),
-                           data=np.zeros((0, DESC_NUMEL), np.float32))
-    return kp, desc
+    return kp, det.extract_descriptors(kp) if len(kp) else Descriptors.empty()
 
 
 def register_sift3d(fixed, moving, params: DetectorParams | None = None,

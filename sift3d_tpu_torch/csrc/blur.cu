@@ -5,8 +5,11 @@
 // which makes each level and its DoG in one pass from a halo slab. Here
 // the level is split at the seam where the halo changes: the x pass needs
 // neighbours in x only, and the y and z passes then stay inside one
-// x-plane. Volumes are f32[nx, ny, nz], C order (z fastest). Python
-// wrapper and tile picker: sift3d_tpu_torch/ops/blur_kernel.py.
+// x-plane. Volumes are f32[nx, ny, nz], C order (z fastest); a batch of
+// them is one launch per pass, volume b at its tensor's base plus b times
+// that tensor's batch stride (in elements, 64-bit), so a level of a
+// [B, L, nx, ny, nz] pyramid needs no copy. Python wrapper and tile
+// picker: sift3d_tpu_torch/ops/blur_kernel.py.
 //
 // Bound on the H100: device-memory bytes. The x pass reads and writes the
 // volume once; the y/z pass reads the x output and the previous level and
@@ -33,7 +36,8 @@
 // run in the same order. Taps outside the volume read zeros; their weight
 // is zero (filters.conv_diagonals), as in the plain version's padding.
 //
-// Offsets: a 64-bit base per tile (or row), 32-bit arithmetic inside it.
+// Offsets: a 64-bit base per volume and tile (or row), 32-bit arithmetic
+// inside it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,16 +113,20 @@ __device__ void stage_skewed(float* dst, const float* __restrict__ w,
 
 // out[x0 + r, p] = sum_k wx[x0 + r, k] * in[x0 + r + lo + k, p], for a
 // tile of kXWidth columns p of the (y, z) plane and tx rows from x0 (tx a
-// multiple of kBlock). Thread t holds columns t and t + kXThreads and
-// kBlock rows at a time: an input value read once serves four rows.
+// multiple of kBlock) of volume blockIdx.z. Thread t holds columns t and
+// t + kXThreads and kBlock rows at a time: an input value read once serves
+// four rows.
 //
 // Shared memory: w4 [tx / 4][band + 3] float4 the skewed weight rows;
 // slab [tx + band - 1][kXWidth] the input rows, zeros outside the volume.
 __global__ void __launch_bounds__(kXThreads)
     blur_x_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                  const float* __restrict__ wx, int band, int lo, int nx,
-                  int plane, int tx, bool vec) {
+                  const float* __restrict__ wx, int band, int lo,
+                  int64_t src_bs, int64_t dst_bs, int nx, int plane, int tx,
+                  bool vec) {
   extern __shared__ float4 smem4[];
+  src += blockIdx.z * src_bs;
+  dst += blockIdx.z * dst_bs;
   const int jn = band + kBlock - 1;
   const float4* w4 = smem4;
   float* slab = reinterpret_cast<float*>(smem4 + (tx / kBlock) * jn);
@@ -171,7 +179,9 @@ __global__ void __launch_bounds__(kXThreads)
 }
 
 // A ty x tz tile (ty a multiple of kBlock, at most 32; tz 32 or 64) of xs
-// consecutive x-planes from blockIdx.z * xs: the y pass and the z pass of
+// consecutive x-planes of one volume (blockIdx.z = b * ceil(nx / xs) + the
+// planes' group; each tensor's volume b at its base + b * its batch
+// stride, dmax[b * dmax_bs] the volume's max): the y pass and the z pass of
 // the x output `src`, the level written to `cur`; with `prev`, also
 // dog = prev - cur and *dmax = max(*dmax, max |dog|) by an integer
 // atomicMax on the bits of the non-negative float (exact, independent of
@@ -194,9 +204,19 @@ __global__ void __launch_bounds__(kYZThreads) blur_yz_dog_kernel(
     const float* __restrict__ src, const float* __restrict__ prev,
     float* __restrict__ cur, float* __restrict__ dog,
     unsigned int* __restrict__ dmax, const float* __restrict__ wy, int by,
-    int loy, const float* __restrict__ wz, int bz, int loz, int nx, int ny,
-    int nz, int ty, int tz, int xs, bool vec) {
+    int loy, const float* __restrict__ wz, int bz, int loz, int64_t src_bs,
+    int64_t prev_bs, int64_t cur_bs, int64_t dog_bs, int64_t dmax_bs, int nx,
+    int ny, int nz, int ty, int tz, int xs, bool vec) {
   extern __shared__ float4 smem4[];
+  const int groups = (nx + xs - 1) / xs;
+  const int vb = blockIdx.z / groups, xg = blockIdx.z - vb * groups;
+  src += vb * src_bs;
+  cur += vb * cur_bs;
+  if (dog != nullptr) {
+    prev += vb * prev_bs;
+    dog += vb * dog_bs;
+    dmax += vb * dmax_bs;
+  }
   const int ca = tz + bz - 1, ra = ty + by - 1;
   const int jy = by + kBlock - 1, jz = bz + kBlock - 1;
   const int so = tz + 4, sb = ty + 1;
@@ -210,7 +230,7 @@ __global__ void __launch_bounds__(kYZThreads) blur_yz_dog_kernel(
   float* a = bt + ((ca * sb + 3) & ~3);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int z0 = blockIdx.x * tz, y0 = blockIdx.y * ty;
-  const int x0 = blockIdx.z * xs, x1 = min(x0 + xs, nx);
+  const int x0 = xg * xs, x1 = min(x0 + xs, nx);
   const int plane = ny * nz;
   const int nry = min(ty, ny - y0), nrz = min(tz, nz - z0);
   const int tz_shift = tz == 64 ? 6 : 5;
@@ -349,23 +369,27 @@ extern "C" const char* s3d_error_string(int code) {
 
 // The tile sizes and shared-memory bytes come from the wrapper's tile
 // picker (ops/blur_kernel.py x_tile, yz_tile); a tile the kernel does not
-// take, or fewer bytes than it needs, is refused.
+// take, or fewer bytes than it needs, is refused. nb volumes, each
+// tensor's volume b at its base + b * its batch stride (elements).
 extern "C" int s3d_blur_x(const float* src, float* dst, const float* wx,
-                          int band, int lo, int nx, int ny, int nz, int tx,
+                          int band, int lo, int nb, int64_t src_bs,
+                          int64_t dst_bs, int nx, int ny, int nz, int tx,
                           int smem_bytes, void* stream) {
   const int need = (int)sizeof(float) * ((band + kBlock - 1) * tx +
                                          (tx + band - 1) * kXWidth);
-  if (tx < 1 || tx % kBlock != 0 || band < 1 || smem_bytes < need) {
+  if (tx < 1 || tx % kBlock != 0 || band < 1 || smem_bytes < need ||
+      nb < 1 || nb > 65535) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = allow_smem(blur_x_kernel, smem_bytes);
   if (err != cudaSuccess) return err;
   const int plane = ny * nz;
-  const dim3 grid((plane + kXWidth - 1) / kXWidth, (nx + tx - 1) / tx);
+  const dim3 grid((plane + kXWidth - 1) / kXWidth, (nx + tx - 1) / tx, nb);
   blur_x_kernel<<<grid, kXThreads, smem_bytes,
                   static_cast<cudaStream_t>(stream)>>>(
-      src, dst, wx, band, lo, nx, plane, tx,
-      plane % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0);
+      src, dst, wx, band, lo, src_bs, dst_bs, nx, plane, tx,
+      plane % 4 == 0 && src_bs % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(src) % 16 == 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,9 +397,12 @@ extern "C" int s3d_blur_x(const float* src, float* dst, const float* wx,
 extern "C" int s3d_blur_yz_dog(const float* src, const float* prev,
                                float* cur, float* dog, float* dmax,
                                const float* wy, int by, int loy,
-                               const float* wz, int bz, int loz, int nx,
-                               int ny, int nz, int ty, int tz, int xs,
-                               int smem_bytes, void* stream) {
+                               const float* wz, int bz, int loz, int nb,
+                               int64_t src_bs, int64_t prev_bs,
+                               int64_t cur_bs, int64_t dog_bs,
+                               int64_t dmax_bs, int nx, int ny, int nz,
+                               int ty, int tz, int xs, int smem_bytes,
+                               void* stream) {
   const int ca = tz + bz - 1;
   const int need = (int)sizeof(float) *
                    ((by + kBlock - 1) * ty + (bz + kBlock - 1) * tz +
@@ -383,16 +410,20 @@ extern "C" int s3d_blur_yz_dog(const float* src, const float* prev,
                     (ty + by - 1) * ((ca + 6) & ~3));
   if (ty < 1 || ty > kBlock * kWarps || ty % kBlock != 0 ||
       (tz != 32 && tz != 64) || ty * tz > kOut * kYZThreads || xs < 1 ||
-      by < 1 || bz < 1 || smem_bytes < need) {
+      by < 1 || bz < 1 || smem_bytes < need || nb < 1 ||
+      (int64_t)nb * ((nx + xs - 1) / xs) > 65535) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = allow_smem(blur_yz_dog_kernel, smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nz + tz - 1) / tz, (ny + ty - 1) / ty, (nx + xs - 1) / xs);
+  const dim3 grid((nz + tz - 1) / tz, (ny + ty - 1) / ty,
+                  nb * ((nx + xs - 1) / xs));
   blur_yz_dog_kernel<<<grid, kYZThreads, smem_bytes,
                        static_cast<cudaStream_t>(stream)>>>(
       src, prev, cur, dog, reinterpret_cast<unsigned int*>(dmax), wy, by,
-      loy, wz, bz, loz, nx, ny, nz, ty, tz, xs,
-      nz % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0);
+      loy, wz, bz, loz, src_bs, prev_bs, cur_bs, dog_bs, dmax_bs, nx, ny, nz,
+      ty, tz, xs,
+      nz % 4 == 0 && src_bs % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(src) % 16 == 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,12 @@
 // DoG extrema stencil with the candidates compacted inside the kernel.
 //
 // Replaces sift3d_tpu/ops/extrema_kernel.py:384 extrema_mask_pallas (TPU
-// Pallas) and the XLA compaction that followed it. dog f32[nl + 2, nx,
-// ny, nz], thr f32[nl] -> the int64 key ((l * nz + z) * ny + y) * nx + x
-// of every candidate, in no particular order (the wrapper sorts them into
-// the reference's scan order), and the count of candidates in all and per
-// level. No mask is written. Python wrapper:
+// Pallas) and the XLA compaction that followed it. A batch of B octave
+// DoG stacks dog f32[B, nl + 2, nx, ny, nz], thr f32[B, nl] -> the int64
+// key (((b * nl + l) * nz + z) * ny + y) * nx + x of every candidate, in
+// no particular order (the wrapper sorts them: volume-major, then the
+// reference's scan order), and the count of candidates in all and per
+// volume and level. No mask is written. Python wrapper:
 // sift3d_tpu_torch/ops/extrema_kernel.py.
 //
 // Bound on the H100: device-memory bytes. The test that rejects almost
@@ -36,19 +37,23 @@ constexpr int kChunk = 2048;    // voxels of a plane a block tests
 // compared neighbour (detect_extrema, sift.c:735-871): the 6 faces and the
 // centres of DoG levels l and l + 2, or the 3x3x3 cube in all three levels
 // (80 neighbours) when `cuboid`. The threshold is tested first; the
-// neighbours only where it passes. Block (b, x, l) tests voxels
-// [b * kChunk, (b + 1) * kChunk) of plane x of level l, in (y, z) order.
+// neighbours only where it passes. Block (c, x, b * nl + l) tests voxels
+// [c * kChunk, (c + 1) * kChunk) of plane x of level l of volume b, in
+// (y, z) order.
 __global__ void __launch_bounds__(kThreads)
     extrema_kernel(const float* __restrict__ dog,
                    const float* __restrict__ thr, int64_t* __restrict__ keys,
                    unsigned long long* __restrict__ counts,
-                   long long capacity, int nx, int ny, int nz, int cuboid) {
-  const int l = blockIdx.z, x = blockIdx.y;
+                   long long capacity, int nl, int nx, int ny, int nz,
+                   int cuboid) {
+  const int bl = blockIdx.z, x = blockIdx.y;
+  const int b = bl / nl, l = bl - b * nl;
   const int lane = threadIdx.x & 31;
   const int plane = ny * nz;
   const int64_t vol = (int64_t)nx * plane;
-  const float* cur = dog + (int64_t)(l + 1) * vol + (int64_t)x * plane;
-  const float t = thr[l];
+  const float* cur = dog + ((int64_t)b * (nl + 2) + l + 1) * vol +
+                     (int64_t)x * plane;
+  const float t = thr[bl];
   const bool x_in = x >= 1 && x <= nx - 2;
   const int p0 = blockIdx.x * kChunk, p1 = min(p0 + kChunk, plane);
   // Every lane runs every step (the ballots need whole warps).
@@ -101,14 +106,14 @@ __global__ void __launch_bounds__(kThreads)
         unsigned long long first = 0;
         if (lane == 0) {
           first = atomicAdd(&counts[0], (unsigned long long)__popc(ballot));
-          atomicAdd(&counts[1 + l], (unsigned long long)__popc(ballot));
+          atomicAdd(&counts[1 + bl], (unsigned long long)__popc(ballot));
         }
         first = __shfl_sync(0xffffffffu, first, 0);
         if (cand) {
           const long long slot =
               (long long)first + __popc(ballot & ((1u << lane) - 1u));
           if (slot < capacity) {
-            keys[slot] = (((int64_t)l * nz + z) * ny + y) * nx + x;
+            keys[slot] = (((int64_t)bl * nz + z) * ny + y) * nx + x;
           }
         }
       }
@@ -118,19 +123,20 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// counts u64[1 + nl], zero on entry: [all candidates, then per level].
-// Keys past `capacity` are counted but not written.
+// counts u64[1 + nb * nl], zero on entry: [all candidates, then per
+// volume and level]. Keys past `capacity` are counted but not written.
 extern "C" int s3d_extrema_candidates(const float* dog, const float* thr,
                                       int64_t* keys, int64_t* counts,
-                                      long long capacity, int nl, int nx,
-                                      int ny, int nz, int cuboid,
+                                      long long capacity, int nb, int nl,
+                                      int nx, int ny, int nz, int cuboid,
                                       void* stream) {
-  if (nl < 1 || nx < 1 || ny < 1 || nz < 1 || nx > 65535 || nl > 65535) {
+  if (nb < 1 || nl < 1 || nx < 1 || ny < 1 || nz < 1 || nx > 65535 ||
+      (int64_t)nb * nl > 65535) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid((ny * nz + kChunk - 1) / kChunk, nx, nl);
+  const dim3 grid((ny * nz + kChunk - 1) / kChunk, nx, nb * nl);
   extrema_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       dog, thr, keys, reinterpret_cast<unsigned long long*>(counts), capacity,
-      nx, ny, nz, cuboid);
+      nl, nx, ny, nz, cuboid);
   return static_cast<int>(cudaGetLastError());
 }

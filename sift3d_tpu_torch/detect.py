@@ -11,7 +11,9 @@ sift.c:814; SIFT3D_IM_LOOP_LIMITED_START, immacros.h:78-82).
 
 Shapes are dynamic here: the stencil gives every candidate's (level, z, y,
 x) key (ops.extrema_kernel), and a sort on the key puts them in scan
-order.
+order. A batch of volumes' octaves goes through one stencil launch and one
+count read; the key's most significant part is the volume, so the sorted
+candidates are volume-major, each volume's in its scan order.
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ from .params import DetectorParams
 
 
 class OctaveCandidates(NamedTuple):
-    """All extrema candidates of one octave, in (level, z, y, x) order."""
+    """All extrema candidates of one octave, in (level, z, y, x) order; of
+    a batch, volume by volume, each in that order."""
     coords: torch.Tensor     # i64[N, 3] voxel coords at octave resolution
     level: torch.Tensor      # i64[N] keypoint level index li (raw s = li)
     strength: torch.Tensor   # f32[N] |DoG|
-    counts: torch.Tensor     # i64[num_kp_levels] candidates per level
+    counts: torch.Tensor     # i64[num_kp_levels] (batch: [B, nl]) per level
+    batch: torch.Tensor | None = None   # i64[N] volume of each (batch only)
 
 
 def detect_extrema_octave(dog_oct: torch.Tensor, dogmax: torch.Tensor,
@@ -37,16 +41,23 @@ def detect_extrema_octave(dog_oct: torch.Tensor, dogmax: torch.Tensor,
     """Extrema of every keypoint level of one octave.
 
     dog_oct f32[num_dog_levels, nx, ny, nz]; dogmax f32[num_dog_levels]
-    the per-level max |DoG| (from the pyramid builder)."""
-    Ld, nx, ny, nz = dog_oct.shape
+    the per-level max |DoG| (from the pyramid builder). A batch, dog_oct
+    f32[B, num_dog_levels, nx, ny, nz] and dogmax f32[B, num_dog_levels],
+    gives every volume's candidates and each one's volume in `batch`."""
+    *lead, Ld, nx, ny, nz = dog_oct.shape
     thr = torch.tensor(params.peak_thresh, dtype=torch.float32,
-                       device=dog_oct.device) * dogmax[1:Ld - 1]
+                       device=dog_oct.device) * dogmax[..., 1:Ld - 1]
     keys, counts = extrema_candidates(dog_oct, thr.contiguous(),
                                       params.cuboid_extrema)
     keys = torch.sort(keys).values
     xx, r = keys % nx, keys // nx
     yy, r = r % ny, r // ny
     zz, lvl = r % nz, r // nz
-    strength = dog_oct[1 + lvl, xx, yy, zz].abs()
-    return OctaveCandidates(torch.stack([xx, yy, zz], dim=-1), lvl,
-                            strength, counts)
+    coords = torch.stack([xx, yy, zz], dim=-1)
+    if not lead:
+        strength = dog_oct[1 + lvl, xx, yy, zz].abs()
+        return OctaveCandidates(coords, lvl, strength, counts)
+    nl = Ld - 2
+    b, lvl = lvl // nl, lvl % nl
+    strength = dog_oct[b, 1 + lvl, xx, yy, zz].abs()
+    return OctaveCandidates(coords, lvl, strength, counts, b)

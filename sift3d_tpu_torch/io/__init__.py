@@ -3,7 +3,9 @@
 Format dispatch as the reference's (im_get_format, imutil.c:318-402):
 .nii and .nii.gz are NIfTI; the Analyze extensions (.img/.img.gz/.hdr)
 route to the NIfTI reader. Volumes are read onto the CPU; the detector
-moves them to its device.
+moves them to its device. Batches of volumes stream through
+``BatchVolumeLoader`` (io/loader.py), which reads them with the native
+threaded reader and uploads them to the card ahead of the consumer.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..volume import Volume
+from .loader import BatchVolumeLoader, group_by_shape, \
+    iter_volume_batches, peek_header
 from .nifti import read_nifti, write_nifti
 
 _NIFTI_EXTS = (".nii", ".nii.gz", ".img", ".img.gz", ".hdr", ".hdr.gz")
@@ -37,4 +41,6 @@ def write_volume(path, vol) -> None:
         write_nifti(path, np.asarray(vol))
 
 
-__all__ = ["read_volume", "write_volume", "read_nifti", "write_nifti"]
+__all__ = ["read_volume", "write_volume", "read_nifti", "write_nifti",
+           "BatchVolumeLoader", "iter_volume_batches", "group_by_shape",
+           "peek_header"]

@@ -141,9 +141,20 @@ def read_nifti(path):
 
     count = nx * ny * nz * nc
     # Typed copy + scaling (nifti.c:101-155); slope 0 means "no scaling".
-    data = np.frombuffer(raw, dtype=np_dtype, count=count).astype(np.float32)
-    if scl_slope != 0.0:
-        data = data * np.float32(scl_slope) + np.float32(scl_inter)
+    # A little-endian payload goes through the native cast (native.py, as
+    # sift3d_tpu/io/nifti.py:144-149); a big-endian one through numpy.
+    if endian == "<":
+        from .. import native
+        if len(raw) < count * np_dtype.itemsize:
+            raise ValueError(f"{path}: truncated NIfTI payload")
+        data = native.cast_to_f32(raw[:count * np_dtype.itemsize],
+                                  int(datatype), count, float(scl_slope),
+                                  float(scl_inter), scl_slope != 0.0)
+    else:
+        data = np.frombuffer(raw, dtype=np_dtype,
+                             count=count).astype(np.float32)
+        if scl_slope != 0.0:
+            data = data * np.float32(scl_slope) + np.float32(scl_inter)
     # x-fastest on disk.
     if nc > 1:
         data = data.reshape(nc, nz, ny, nx).transpose(3, 2, 1, 0)

@@ -10,21 +10,19 @@ sift.c:1673-1726).
 from __future__ import annotations
 
 import dataclasses
-import gzip
 
 import numpy as np
+
+from . import native
+from .params import DESC_NUMEL
 
 
 def write_csv(path: str, mat: np.ndarray) -> None:
     """Reference CSV format: '%f'-formatted, comma-delimited, a newline
     after each row; gzip when the name ends in .gz (write_Mat_rm,
-    imutil.c:405-479)."""
-    mat = np.atleast_2d(np.asarray(mat, np.float64))
-    data = "".join(",".join(f"{v:f}" for v in row) + "\n"
-                   for row in mat).encode()
-    opener = gzip.open if str(path).endswith(".gz") else open
-    with opener(path, "wb") as f:
-        f.write(data)
+    imutil.c:405-479), by the native writer (native.py, as
+    sift3d_tpu/keypoints.py:26-30)."""
+    native.csv_write(path, np.atleast_2d(np.asarray(mat, np.float64)))
 
 
 @dataclasses.dataclass
@@ -89,6 +87,12 @@ class Descriptors:
 
     def __getitem__(self, idx) -> "Descriptors":
         return Descriptors(self.xyz[idx], self.sd[idx], self.data[idx])
+
+    @classmethod
+    def empty(cls) -> "Descriptors":
+        return cls(xyz=np.zeros((0, 3), np.float32),
+                   sd=np.zeros(0, np.float32),
+                   data=np.zeros((0, DESC_NUMEL), np.float32))
 
     def to_matrix(self) -> np.ndarray:
         """[N, 771]: x y z el0..el767."""

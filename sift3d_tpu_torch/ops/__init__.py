@@ -24,3 +24,12 @@ def _warm(threads: int) -> None:
     x = torch.linspace(0.0, 8.0, threads * 65536)   # a share for each thread
     torch.exp(-x)
     torch.sqrt(x)
+
+
+def true_div(a: torch.Tensor, s: float) -> torch.Tensor:
+    """a / s rounded once, as the kernels, the CPU and the JAX package
+    divide: torch on CUDA divides a tensor by a Python scalar as a multiply
+    by the scalar's f32 reciprocal, which can be an ulp off the quotient
+    and move a voxel across a window's edge in a plain version on the card.
+    A tensor divisor takes the true division on every device."""
+    return a / torch.full_like(a, float(s))

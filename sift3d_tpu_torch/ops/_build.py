@@ -35,10 +35,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _I64 = ctypes.c_int64
 # argtypes of every entry point; each returns a cudaError_t as int.
 _SIGNATURES = {
-    "s3d_blur_x": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "s3d_blur_yz_dog": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _P),
-    "s3d_extrema_candidates": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+    "s3d_blur_x": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _I, _I, _I, _I,
+                   _P),
+    "s3d_blur_yz_dog": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
+                        _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
+    "s3d_extrema_candidates": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
                                _P),
     "s3d_orient": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),

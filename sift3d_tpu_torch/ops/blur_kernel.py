@@ -11,6 +11,12 @@ filters.conv_diagonals. Then ``dog[l] = gpyr[l] - gpyr[l + 1]`` (build_dog,
 sift.c:713-732) and the per-level max |DoG|, the extrema threshold input
 (sift.c:821-829).
 
+A batch of B same-shape volumes goes through every level together:
+``chain_octave`` of f32[B, nx, ny, nz] gives gpyr f32[B, L, nx, ny, nz],
+dog f32[B, L-1, nx, ny, nz] and dogmax f32[B, L-1] (one max per volume),
+with the same two launches per level as one volume; a volume alone,
+f32[nx, ny, nz], gives the unbatched shapes.
+
 CUDA kernels (csrc/blur.cu), two launches per level:
  - ``s3d_blur_x``: the x pass. A block owns a tile of 256 (y, z) columns
    and ``tx`` rows of x; the ``tx + Bx - 1`` input rows it needs reach
@@ -22,6 +28,9 @@ CUDA kernels (csrc/blur.cu), two launches per level:
    integer atomicMax on the float's bits (exact and order-free for
    non-negative floats). The first level of octave 0 runs it without the
    DoG.
+Both take the batch as a grid axis (the x pass's band would mix volumes
+stacked along x), each tensor's volume b at its base plus b times its
+batch stride, so a level of the batched pyramid is passed in place.
 Each thread of a pass holds four outputs along the band, so a value read
 from shared memory serves four taps, against one float4 of skewed weights;
 each band term is still a separate round-to-nearest multiply and add, k
@@ -78,8 +87,10 @@ def axis_pass_plain(vol: torch.Tensor, wd: torch.Tensor, lo: int,
 
 
 def dog_max_plain(prev: torch.Tensor, cur: torch.Tensor):
+    """(prev - cur, its max |.| per volume: a scalar for one volume
+    [nx, ny, nz], f32[B] for a batch)."""
     dog = prev - cur
-    return dog, dog.abs().max()
+    return dog, dog.abs().flatten(-3).amax(dim=-1)
 
 
 def x_smem_bytes(tx: int, bx: int) -> int:
@@ -125,17 +136,18 @@ def x_tile(nx: int, bx: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def yz_tile(nx: int, ny: int, nz: int, by: int,
-            bz: int) -> tuple[int, int, int, int]:
+def yz_tile(nx: int, ny: int, nz: int, by: int, bz: int,
+            nb: int = 1) -> tuple[int, int, int, int]:
     """(ty, tz, xs, shared-memory bytes) of the y/z pass with bands
-    (By, Bz): tz is 64 (32 where nz <= 32, a warp's width), ty 32 rows
-    (fewer for a short axis, a multiple of 4), halved until the tile fits
-    in 64 KB; refused as x_tile. A block takes xs = 4 x-planes (fewer
-    where the grid would leave SMs idle), staging the weights once."""
+    (By, Bz) over nb volumes: tz is 64 (32 where nz <= 32, a warp's
+    width), ty 32 rows (fewer for a short axis, a multiple of 4), halved
+    until the tile fits in 64 KB; refused as x_tile. A block takes xs = 4
+    x-planes (fewer where the grid would leave SMs idle), staging the
+    weights once."""
     tz = 64 if nz > 32 else 32
     ty = _halve_to_fit(min(32, _round_up(ny, BLOCK)),
                        lambda t: yz_smem_bytes(t, tz, by, bz))
-    tiles = -(-ny // ty) * -(-nz // tz)
+    tiles = -(-ny // ty) * -(-nz // tz) * nb
     xs = 4
     while xs > 1 and tiles * -(-nx // xs) < 2 * SMS:
         xs //= 2
@@ -149,34 +161,57 @@ def _check_dims(name: str, shape) -> None:
         raise ValueError(f"{name}: volume too large {tuple(shape)}")
 
 
+def _batch(name: str, t: torch.Tensor, dims, nb: int | None = None):
+    """(B, batch stride in elements) of a CUDA f32 tensor holding one
+    volume [nx, ny, nz] (B = 1) or a batch [B, nx, ny, nz] whose volumes
+    are each contiguous; the batch stride is free (a level of a [B, L, ...]
+    pyramid). Raises for anything else, or for B other than nb."""
+    shape, stride = t.shape, t.stride()
+    _, ny, nz = dims
+    if (not t.is_cuda or t.dtype != torch.float32
+            or len(shape) not in (3, 4) or shape[-3:] != dims
+            or stride[-3:] != (ny * nz, nz, 1)):
+        raise ValueError(f"{name}: expected a CUDA float32 tensor of "
+                         f"contiguous volumes of {dims}, got {t.dtype} "
+                         f"{tuple(shape)} strides {stride} on {t.device}")
+    b, bs = (1, 0) if len(shape) == 3 else (shape[0], stride[0])
+    if nb is not None and b != nb:
+        raise ValueError(f"{name}: batch of {b}, expected {nb}")
+    return b, bs
+
+
 def blur_x_plain(src: torch.Tensor, wx: torch.Tensor, lo: int):
-    return axis_pass_plain(src, wx, lo, 0)
+    return axis_pass_plain(src, wx, lo, src.ndim - 3)
 
 
 def blur_x(src: torch.Tensor, wx: torch.Tensor, lo: int,
            out: torch.Tensor) -> torch.Tensor:
-    """out = the banded x pass of src f32[nx, ny, nz], band weights
+    """out = the banded x pass of src, f32[nx, ny, nz] or a batch
+    f32[B, nx, ny, nz] (each volume contiguous), band weights
     wx f32[nx, Bx]."""
     global blur_x_launches
     if src.device.type == "cpu":
         return out.copy_(blur_x_plain(src, wx, lo))
-    nx, ny, nz = src.shape
-    _build.check_cuda("blur_x src", src, torch.float32)
-    _build.check_cuda("blur_x out", out, torch.float32, src.shape)
+    nx, ny, nz = dims = tuple(src.shape[-3:])
+    nb, src_bs = _batch("blur_x src", src, dims)
+    _, out_bs = _batch("blur_x out", out, dims, nb)
     _build.check_cuda("blur_x wx", wx, torch.float32, (nx, wx.shape[1]))
-    _check_dims("blur_x", src.shape)
+    _check_dims("blur_x", dims)
     tx, smem = x_tile(nx, wx.shape[1])
     _build.call("s3d_blur_x", src.data_ptr(), out.data_ptr(), wx.data_ptr(),
-                wx.shape[1], lo, nx, ny, nz, tx, smem, _build.stream_ptr(src))
+                wx.shape[1], lo, nb, src_bs, out_bs, nx, ny, nz, tx, smem,
+                _build.stream_ptr(src))
     blur_x_launches += 1
     return out
 
 
 def blur_yz_dog_plain(src: torch.Tensor, wy: torch.Tensor, loy: int,
                       wz: torch.Tensor, loz: int, prev=None):
-    """(cur, dog, max |dog|): the y and z passes of src, then the DoG
-    against prev; dog and max are None without prev."""
-    cur = axis_pass_plain(axis_pass_plain(src, wy, loy, 1), wz, loz, 2)
+    """(cur, dog, max |dog| per volume): the y and z passes of src, then
+    the DoG against prev; dog and max are None without prev."""
+    a = src.ndim - 3
+    cur = axis_pass_plain(axis_pass_plain(src, wy, loy, a + 1), wz, loz,
+                          a + 2)
     if prev is None:
         return cur, None, None
     return (cur,) + dog_max_plain(prev, cur)
@@ -187,35 +222,45 @@ def blur_yz_dog(src: torch.Tensor, wy: torch.Tensor, loy: int,
                 prev: torch.Tensor | None = None,
                 dog: torch.Tensor | None = None,
                 dmax: torch.Tensor | None = None) -> torch.Tensor:
-    """cur = the y then z passes of src f32[nx, ny, nz] (the x output),
-    band weights wy f32[ny, By], wz f32[nz, Bz]. With prev:
-    dog = prev - cur and dmax (f32[1], zero on entry) = max |dog|."""
+    """cur = the y then z passes of src (the x output), f32[nx, ny, nz] or
+    a batch f32[B, nx, ny, nz] (each volume contiguous), band weights
+    wy f32[ny, By], wz f32[nz, Bz]. With prev: dog = prev - cur and dmax
+    (f32[1] for one volume, f32[B] of any stride for a batch, zero on
+    entry) = max |dog| per volume."""
     global blur_yz_dog_launches
     if src.device.type == "cpu":
         c, d, m = blur_yz_dog_plain(src, wy, loy, wz, loz, prev)
         cur.copy_(c)
         if prev is not None:
             dog.copy_(d)
-            dmax.copy_(m.reshape(1))
+            dmax.copy_(m.reshape(dmax.shape))
         return cur
-    nx, ny, nz = src.shape
-    _build.check_cuda("blur_yz_dog src", src, torch.float32)
-    _build.check_cuda("blur_yz_dog cur", cur, torch.float32, src.shape)
+    dims = tuple(src.shape[-3:])
+    nx, ny, nz = dims
+    nb, src_bs = _batch("blur_yz_dog src", src, dims)
+    _, cur_bs = _batch("blur_yz_dog cur", cur, dims, nb)
     _build.check_cuda("blur_yz_dog wy", wy, torch.float32, (ny, wy.shape[1]))
     _build.check_cuda("blur_yz_dog wz", wz, torch.float32, (nz, wz.shape[1]))
     if len({prev is None, dog is None, dmax is None}) != 1:
         raise ValueError("blur_yz_dog: prev, dog and dmax go together")
+    prev_bs = dog_bs = dmax_bs = 0
     if prev is not None:
-        _build.check_cuda("blur_yz_dog prev", prev, torch.float32, src.shape)
-        _build.check_cuda("blur_yz_dog dog", dog, torch.float32, src.shape)
-        _build.check_cuda("blur_yz_dog dmax", dmax, torch.float32, (1,))
-    _check_dims("blur_yz_dog", src.shape)
-    ty, tz, xs, smem = yz_tile(nx, ny, nz, wy.shape[1], wz.shape[1])
+        _, prev_bs = _batch("blur_yz_dog prev", prev, dims, nb)
+        _, dog_bs = _batch("blur_yz_dog dog", dog, dims, nb)
+        if not dmax.is_cuda or dmax.dtype != torch.float32 \
+                or tuple(dmax.shape) != (nb,):
+            raise ValueError(f"blur_yz_dog dmax: expected CUDA f32[{nb}]")
+        dmax_bs = dmax.stride(0)
+    _check_dims("blur_yz_dog", dims)
+    ty, tz, xs, smem = yz_tile(nx, ny, nz, wy.shape[1], wz.shape[1], nb)
+    if nb * -(-nx // xs) > 65535:
+        raise ValueError(f"blur_yz_dog: batch of {nb} too large for the grid")
     ptr = (lambda t: None if t is None else t.data_ptr())
     _build.call("s3d_blur_yz_dog", src.data_ptr(), ptr(prev), cur.data_ptr(),
                 ptr(dog), ptr(dmax), wy.data_ptr(), wy.shape[1], loy,
-                wz.data_ptr(), wz.shape[1], loz, nx, ny, nz, ty, tz, xs,
-                smem, _build.stream_ptr(src))
+                wz.data_ptr(), wz.shape[1], loz, nb, src_bs, prev_bs, cur_bs,
+                dog_bs, dmax_bs, nx, ny, nz, ty, tz, xs, smem,
+                _build.stream_ptr(src))
     blur_yz_dog_launches += 1
     return cur
 
@@ -241,27 +286,42 @@ def blur_level(src: torch.Tensor, diags, tmp: torch.Tensor,
                        None if dog is None else src, dog, dmax)
 
 
-def chain_octave(src: torch.Tensor, plan, octave: int):
-    """(gpyr f32[L, nx, ny, nz], dog f32[L-1, nx, ny, nz], dogmax f32[L-1])
-    of one octave. src is the [-1, 1]-scaled input (octave 0, blurred
-    sigma_n -> first level) or the downsampled previous-octave level
-    (copied in unblurred)."""
+def chain_octave(src: torch.Tensor, plan, octave: int,
+                 gpyr: torch.Tensor | None = None):
+    """(gpyr f32[B, L, nx, ny, nz], dog f32[B, L-1, nx, ny, nz],
+    dogmax f32[B, L-1]) of one octave of a batch src f32[B, nx, ny, nz];
+    for one volume src f32[nx, ny, nz], the same without the batch axis.
+    src is the [-1, 1]-scaled input (octave 0, blurred sigma_n -> first
+    level) or the downsampled previous-octave level (copied in unblurred).
+    gpyr, where given, is the contiguous f32[B, L, nx, ny, nz] buffer the
+    levels are written into."""
     L = plan.num_gpyr_levels
-    dims = plan.octave_dims[octave]
-    if tuple(src.shape) != tuple(dims):
+    dims = tuple(plan.octave_dims[octave])
+    if tuple(src.shape[-3:]) != dims or src.ndim not in (3, 4):
         raise ValueError(f"chain_octave: source shape {tuple(src.shape)} "
                          f"!= octave dims {dims}")
+    one = src.ndim == 3
+    src = src[None] if one else src
+    B = src.shape[0]
     dev = src.device
-    gpyr = torch.empty((L,) + tuple(dims), dtype=torch.float32, device=dev)
-    dog = torch.empty((L - 1,) + tuple(dims), dtype=torch.float32,
-                      device=dev)
-    dogmax = torch.zeros(L - 1, dtype=torch.float32, device=dev)
-    tmp = torch.empty_like(gpyr[0])
+    if gpyr is None:
+        gpyr = torch.empty((B, L) + dims, dtype=torch.float32, device=dev)
+    elif tuple(gpyr.shape) != (B, L) + dims or not gpyr.is_contiguous():
+        raise ValueError(f"chain_octave: pyramid buffer "
+                         f"{tuple(gpyr.shape)} != {(B, L) + dims}")
+    dog = torch.empty((B, L - 1) + dims, dtype=torch.float32, device=dev)
+    dogmax = torch.zeros((B, L - 1), dtype=torch.float32, device=dev)
+    tmp = torch.empty((B,) + dims, dtype=torch.float32, device=dev)
+    # Each level's [B, ...] views, made at once.
+    levels, dogs, dmaxs = gpyr.unbind(1), dog.unbind(1), dogmax.unbind(1)
     if octave == 0:
-        blur_level(src.contiguous(), _diags(plan, 0, 0, dev), tmp, gpyr[0])
+        blur_level(src.contiguous(), _diags(plan, 0, 0, dev), tmp,
+                   levels[0])
     else:
-        gpyr[0].copy_(src)
+        levels[0].copy_(src)
     for i in range(1, L):
-        blur_level(gpyr[i - 1], _diags(plan, octave, i, dev), tmp, gpyr[i],
-                   dog[i - 1], dogmax[i - 1:i])
+        blur_level(levels[i - 1], _diags(plan, octave, i, dev), tmp,
+                   levels[i], dogs[i - 1], dmaxs[i - 1])
+    if one:
+        return gpyr[0], dog[0], dogmax[0]
     return gpyr, dog, dogmax

@@ -48,7 +48,7 @@ import torch
 from .. import geometry
 from ..params import ICOS_NFACES, ICOS_NVERT, NHIST_PER_DIM
 from ..windows import gather_windows, window_extent
-from . import _build, warm_cpu_math
+from . import _build, true_div, warm_cpu_math
 
 launches = 0   # kernel launches on CUDA tensors (chip_smoke.py reads it)
 
@@ -171,7 +171,7 @@ def prep_windows(levels: torch.Tensor, lvl: torch.Tensor,
     n = levels.shape[1:]
     sigma = sd * float(np.float32(params.desc_sig_fctr))
     win_radius = sigma * float(np.float32(params.desc_rad_fctr))
-    half_width = win_radius / float(np.float32(_SQRT2))
+    half_width = true_div(win_radius, np.float32(_SQRT2))
     bin_fctr = 1.0 / (2.0 * half_width / float(nb))
 
     win, start = gather_windows(levels, lvl, coords, extents)
@@ -193,8 +193,9 @@ def prep_windows(levels: torch.Tensor, lvl: torch.Tensor,
         idx = (start[:, a, None] + 1
                + torch.arange(ishape[a], device=dev)).reshape(shape)
         c = centers[:, a]
-        lo = torch.clamp(torch.floor(c - win_radius / u[a]), min=1.0)
-        hi = torch.clamp(torch.ceil(c + win_radius / u[a]),
+        ra = true_div(win_radius, u[a])
+        lo = torch.clamp(torch.floor(c - ra), min=1.0)
+        hi = torch.clamp(torch.ceil(c + ra),
                          max=float(n[a] - 2))
         mask &= (idx >= col(lo.long())) & (idx <= col(hi.long()))
         d3.append((idx.float() - col(c)) * u[a])

@@ -13,16 +13,21 @@ three levels under ``cuboid`` (80 neighbors, sift.c:761-796).
 
 ``extrema_candidates`` gives each candidate's key
 ``((l * nz + z) * ny + y) * nx + x`` (the reference's scan order: level,
-then z, y, x) in no particular order, and the count per level.
+then z, y, x) in no particular order, and the count per level. A batch of
+B stacks dog f32[B, nl + 2, nx, ny, nz] with thresholds thr f32[B, nl]
+adds the volume as the key's most significant part,
+``(((b * nl + l) * nz + z) * ny + y) * nx + x`` (sorted keys are
+volume-major, each volume in its own scan order), and counts i64[B, nl].
 
 CUDA kernel (csrc/extrema.cu, ``s3d_extrema_candidates``): one launch per
-octave over chunks of the (y, z) planes of every keypoint level. A thread
-reads its voxels' own values, coalesced, and the neighbors only where the
-threshold passes (a few percent of the voxels); a warp ballot and one
+octave, for the whole batch, over chunks of the (y, z) planes of every
+keypoint level of every volume. A thread reads its voxels' own values,
+coalesced, and the neighbors only where the threshold passes (a few
+percent of the voxels); a warp ballot and one
 atomicAdd per warp write the keys into a buffer of fixed capacity. No mask
 reaches device memory. The wrapper reads the count (the octave's one host
-sync) and, if it exceeds the capacity, launches the kernel once more with
-the exact capacity.
+sync, for the whole batch) and, if it exceeds the capacity, launches the
+kernel once more with the exact capacity.
 
 Bound on the H100: device-memory bandwidth, reading the keypoint levels'
 DoG once (the outer DoG levels only at the voxels that pass the
@@ -83,7 +88,15 @@ def extrema_mask_plain(dog: torch.Tensor, thr: torch.Tensor,
 def extrema_candidates_plain(dog: torch.Tensor, thr: torch.Tensor,
                              cuboid: bool = False):
     """Plain version: (keys i64[N], counts i64[nl]) from the mask by
-    ``nonzero``."""
+    ``nonzero``; for a batch (dog [B, nl + 2, ...], thr [B, nl]) the
+    per-volume plain version in a loop over b, keys offset by b, counts
+    i64[B, nl]."""
+    if dog.ndim == 5:
+        parts = [extrema_candidates_plain(d, t, cuboid)
+                 for d, t in zip(dog, thr)]
+        per = (dog.shape[1] - 2) * dog[0, 0].numel()
+        return (torch.cat([k + b * per for b, (k, _) in enumerate(parts)]),
+                torch.stack([c for _, c in parts]))
     _, nx, ny, nz = dog.shape
     mask = extrema_mask_plain(dog, thr, cuboid)
     counts = mask.reshape(mask.shape[0], -1).sum(dim=1)
@@ -95,34 +108,38 @@ def default_capacity(shape) -> int:
     """Key slots of the first launch: 1 in 1024 voxels of the keypoint
     levels, at least 4096 (a 256^3 octave 0 of a dense volume has a few
     thousand candidates)."""
-    Ld, nx, ny, nz = shape
-    return max(4096, (Ld - 2) * nx * ny * nz // 1024)
+    *lead, Ld, nx, ny, nz = shape
+    B = lead[0] if lead else 1
+    return max(4096, B * (Ld - 2) * nx * ny * nz // 1024)
 
 
 def extrema_candidates(dog: torch.Tensor, thr: torch.Tensor,
                        cuboid: bool = False, capacity: int | None = None):
     """(keys i64[N] of every candidate, in no particular order; counts
-    i64[nl] per level) of one octave's DoG stack."""
+    i64[nl] per level) of one octave's DoG stack dog f32[nl + 2, nx, ny,
+    nz] with thresholds thr f32[nl]; of a batch dog f32[B, nl + 2, nx, ny,
+    nz], thr f32[B, nl], the keys of all volumes and counts i64[B, nl]."""
     if dog.device.type == "cpu":
         return extrema_candidates_plain(dog, thr, cuboid)
-    Ld, nx, ny, nz = dog.shape
-    nl = Ld - 2
+    *lead, Ld, nx, ny, nz = dog.shape
+    B, nl = (lead[0] if lead else 1), Ld - 2
     _build.check_cuda("extrema_candidates dog", dog, torch.float32)
-    _build.check_cuda("extrema_candidates thr", thr, torch.float32, (nl,))
-    if min(nx, ny, nz) < 3 or nl < 1:
+    _build.check_cuda("extrema_candidates thr", thr, torch.float32,
+                      tuple(lead) + (nl,))
+    if min(nx, ny, nz) < 3 or nl < 1 or len(lead) > 1:
         raise ValueError(f"extrema_candidates: DoG stack too small "
                          f"{tuple(dog.shape)}")
-    if ny * nz >= 2 ** 31:
+    if ny * nz >= 2 ** 31 or B * nl > 65535:
         raise ValueError("extrema_candidates: a (y, z) plane needs 64-bit "
-                         "offsets")
-    counts = torch.zeros(1 + nl, dtype=torch.int64, device=dog.device)
+                         "offsets, or the batch is too large for the grid")
+    counts = torch.zeros(1 + B * nl, dtype=torch.int64, device=dog.device)
 
     def launch(cap: int) -> torch.Tensor:
         global launches
         keys = torch.empty(max(cap, 1), dtype=torch.int64, device=dog.device)
         _build.call("s3d_extrema_candidates", dog.data_ptr(), thr.data_ptr(),
-                    keys.data_ptr(), counts.data_ptr(), cap, nl, nx, ny, nz,
-                    int(cuboid), _build.stream_ptr(dog))
+                    keys.data_ptr(), counts.data_ptr(), cap, B, nl, nx, ny,
+                    nz, int(cuboid), _build.stream_ptr(dog))
         launches += 1
         return keys
 
@@ -132,4 +149,4 @@ def extrema_candidates(dog: torch.Tensor, thr: torch.Tensor,
     if n > cap:           # once more, with a slot for every key
         counts.zero_()
         keys = launch(n)
-    return keys[:n], counts[1:]
+    return keys[:n], counts[1:].reshape(tuple(lead) + (nl,))

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..windows import gather_windows, window_extent
-from . import _build, warm_cpu_math
+from . import _build, true_div, warm_cpu_math
 
 launches = 0        # s3d_orient launches on CUDA tensors (chip_smoke.py)
 eigh_launches = 0   # s3d_eigh3x3 launches on CUDA tensors (chip_smoke.py)
@@ -89,8 +89,9 @@ def _moments_chunk(levels, lvl, anchors, fp, units, sig_fctr, rad_fctr,
                + torch.arange(extents[a] - 2, device=levels.device))
         idx = idx.reshape(shape)
         c = center[:, a]
-        lo = torch.clamp(torch.floor(c - rad / u[a]), min=1.0)
-        hi = torch.clamp(torch.ceil(c + rad / u[a]), max=float(n[a] - 2))
+        ra = true_div(rad, u[a])
+        lo = torch.clamp(torch.floor(c - ra), min=1.0)
+        hi = torch.clamp(torch.ceil(c + ra), max=float(n[a] - 2))
         mask &= ((idx >= lo.long().reshape(K, 1, 1, 1))
                  & (idx <= hi.long().reshape(K, 1, 1, 1)))
         d = (idx.float() - c.reshape(K, 1, 1, 1)) * u[a]

@@ -16,13 +16,15 @@ _PHANTOMS = {"sparse": (42, 150, (0.08, 0.92), (0.01, 0.06)),
              "dense": (7, 2500, (0.04, 0.96), (0.006, 0.02))}
 
 
-def bench_volume(cell: str, n: int, device) -> torch.Tensor:
+def bench_volume(cell: str, n: int, device,
+                 seed: int | None = None) -> torch.Tensor:
     """bench.make_bench_volume(n) ("sparse") or make_dense_volume(n)
     ("dense") as f32[n, n, n] on `device`: the same random draws and 1-D
     exponentials in numpy, the same f64 products, rounded to f32 and summed
-    blob by blob in the same order, so the volume is bit-identical."""
-    seed, blobs, cr, sr = _PHANTOMS[cell]
-    rng = np.random.default_rng(seed)
+    blob by blob in the same order, so the volume is bit-identical. Another
+    `seed` draws another phantom of the same kind."""
+    bench_seed, blobs, cr, sr = _PHANTOMS[cell]
+    rng = np.random.default_rng(bench_seed if seed is None else seed)
     ax = np.arange(n, dtype=np.float64)
     vol = torch.zeros((n, n, n), dtype=torch.float32, device=device)
     for _ in range(blobs):

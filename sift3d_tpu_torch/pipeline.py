@@ -14,6 +14,15 @@ octave. Descriptors group the keypoints by octave (ops.desc_kernel).
 Everything runs eagerly on the detector's device, with
 dynamic shapes; only the assembled keypoints go to the host.
 
+A batch of same-shape volumes (detect_keypoints_batch,
+extract_descriptors_batch) runs every stage for all volumes at once: each
+kernel launches as often for the batch as for one volume, and each octave
+goes to the host in one copy. A single volume is a batch of one whose
+octaves take the single-volume stacks (no volume index to decode). The
+batch is split into sub-batches whose transient buffers fit MEM_SHARE of
+the card's free memory beside the batch's pyramid, which is kept for the
+descriptors (SUB_BATCH forces a size).
+
 Reference quirk replicated by default: the reference's compaction copies
 every keypoint field EXCEPT strength (copy_Keypoint, sift.c:372-384), so
 surviving keypoint j inherits the strength of the j-th candidate in scan
@@ -37,14 +46,37 @@ from .pyramid import PyramidPlan, build_gpyr_and_dog, make_plan, \
 from .refinement import refine_candidates_octave
 from .volume import as_volume
 
+# Share of the card's free memory (torch.cuda.mem_get_info) that a batch's
+# pyramids and one sub-batch's transient buffers may take.
+MEM_SHARE = 0.5
+# Volumes per sub-batch when set; None derives it from MEM_SHARE (on the
+# CPU: the whole batch).
+SUB_BATCH: int | None = None
+
+
+def _as_batch(vols) -> torch.Tensor:
+    """f32[B, nx, ny, nz] (where it lies) from an array, a tensor, or a
+    sequence of same-shape arrays or tensors."""
+    if isinstance(vols, (list, tuple)):
+        vols = torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                            for v in vols])
+    vols = torch.as_tensor(vols, dtype=torch.float32)
+    if vols.ndim != 4 or vols.shape[0] < 1:
+        raise ValueError(f"expected a batch of 3-D volumes [B, nx, ny, nz], "
+                         f"got shape {tuple(vols.shape)}")
+    return vols
+
+
 
 class SIFT3D:
     """SIFT3D detector + descriptor extractor on one torch device.
 
     Counterpart of the reference's sift3d_detector
     (imtypes_private.h:208-223): holds parameters and, after
-    detect_keypoints() or load_pyramid(), the Gaussian pyramid that
-    extract_descriptors() reads.
+    detect_keypoints(), detect_keypoints_batch() or load_pyramid(), the
+    Gaussian pyramid (one f32[B, L, nx, ny, nz] per octave, B = 1 for one
+    volume) that extract_descriptors() and extract_descriptors_batch()
+    read.
     """
 
     def __init__(self, params: DetectorParams = DetectorParams(),
@@ -56,15 +88,64 @@ class SIFT3D:
         self._plan: PyramidPlan | None = None
         self._gpyr: list[torch.Tensor] | None = None
         self._input_shape: tuple[int, int, int] | None = None
+        self.sub_batch = 0   # volumes per sub-batch of the last detection
 
     # -- detection ----------------------------------------------------------
 
     def detect_keypoints(self, vol) -> Keypoints:
         vol = as_volume(vol, self.device)
-        plan = make_plan(vol.shape, vol.units, self.params)
-        gpyr, dogs, dogmax = build_gpyr_and_dog(scale_to_unit(vol.data), plan)
-        self._plan, self._gpyr, self._input_shape = plan, gpyr, vol.shape
-        return self._assemble(plan, gpyr, dogs, dogmax)
+        return self._detect(vol.data[None], vol.units)[0]
+
+    def detect_keypoints_batch(self, vols, units=(1.0, 1.0, 1.0)
+                               ) -> list[Keypoints]:
+        """Keypoints of each of B same-shape volumes (f32[B, nx, ny, nz],
+        or a sequence of volumes) at voxel `units`, each equal to what
+        detect_keypoints gives for that volume alone. The detector then
+        holds the batch's pyramid, for extract_descriptors_batch."""
+        return self._detect(_as_batch(vols), units)
+
+    def _sub_batch(self, plan: PyramidPlan, B: int) -> int:
+        """Volumes per sub-batch: SUB_BATCH, or as many as fit MEM_SHARE of
+        the card's free memory beside the whole batch's pyramids (kept for
+        the descriptors), each taking its DoG, the x pass's output and its
+        scaled input while its pyramid is built."""
+        if SUB_BATCH is not None:
+            return max(1, min(B, int(SUB_BATCH)))
+        if self.device.type != "cuda" or B == 1:
+            return B
+        free, _ = torch.cuda.mem_get_info(self.device)
+        L = plan.num_gpyr_levels
+        vox = sum(int(np.prod(d)) for d in plan.octave_dims)
+        kept = 4 * L * vox
+        work = 4 * (L + 1) * vox + 4 * int(np.prod(plan.input_dims))
+        return max(1, min(B, int((MEM_SHARE * free - B * kept) // work)))
+
+    def _detect(self, data: torch.Tensor, units) -> list[Keypoints]:
+        """Keypoints of each volume of data f32[B, nx, ny, nz] (on any
+        device; moved to the detector's a sub-batch at a time)."""
+        B = data.shape[0]
+        plan = make_plan(data.shape[1:], units, self.params)
+        L = plan.num_gpyr_levels
+        self._plan, self._gpyr = None, None     # the last batch's pyramid
+        sub = self.sub_batch = self._sub_batch(plan, B)
+        gpyr = [torch.empty((B, L) + tuple(d), dtype=torch.float32,
+                            device=self.device) for d in plan.octave_dims]
+        parts = []   # (octave, first volume, sub-batch size, host rows)
+        for s in range(0, B, sub):
+            x = scale_to_unit(data[s:s + sub].to(self.device, torch.float32)
+                              .contiguous())
+            _, dogs, dogmax = build_gpyr_and_dog(
+                x, plan, [g[s:s + sub] for g in gpyr])
+            del x
+            for o in range(plan.num_octaves):
+                rows = self._octave(plan, o, gpyr[o][s:s + sub], dogs[o],
+                                    dogmax[o])
+                if rows is not None:
+                    parts.append((o, s, min(sub, B - s), rows))
+            del dogs, dogmax
+        self._plan, self._gpyr = plan, gpyr
+        self._input_shape = tuple(int(d) for d in data.shape[1:])
+        return self._keypoints(plan, parts, B)
 
     def load_pyramid(self, gpyr_octaves, input_shape, units) -> None:
         """Install a Gaussian pyramid computed elsewhere (one
@@ -79,13 +160,17 @@ class SIFT3D:
             if tuple(g.shape) != want:
                 raise ValueError(f"octave {o}: pyramid shape "
                                  f"{tuple(g.shape)} != {want}")
-        self._plan, self._gpyr = plan, gpyr
+        self._plan, self._gpyr = plan, [g[None] for g in gpyr]
         self._input_shape = tuple(int(d) for d in input_shape)
 
-    def _assemble(self, plan, gpyr, dogs, dogmax) -> Keypoints:
-        """Candidates of every octave (octave -> level -> z, y, x), their
-        refinement when an extension is on, their orientations, and the
-        survivors in that order.
+    def _octave(self, plan, o, gpyr_o, dog, dogmax) -> np.ndarray | None:
+        """Candidates of octave o of a (sub-)batch, volume-major and in
+        each volume level -> z, y, x order, their refinement when an
+        extension is on, their orientations: one host copy of their rows
+        (None without candidates). Columns: coordinates or refined
+        centers (3), strength, accepted, R (9), the refined scale (with an
+        extension on), and last the level: of one volume, its keypoint
+        level; of a batch, the level in the sub-batch's stack.
 
         Refined (sift3d_tpu/pipeline.py:1549-1562): center = coords +
         offset, sd = scale[level + 1] * 2^(ds / nl), and the edge test's
@@ -95,50 +180,78 @@ class SIFT3D:
         params = self.params
         nl = params.num_kp_levels
         ext = params.extensions
-        cols = {k: [] for k in ("coords", "strength", "accepted", "R",
-                                "octave", "level", "sd")}
-        for o in range(plan.num_octaves):
-            cand = detect_extrema_octave(dogs[o], dogmax[o], params)
-            if cand.level.numel() == 0:
-                continue
-            scales = torch.tensor(plan.scales[o][1:1 + nl],
-                                  dtype=torch.float32, device=self.device)
-            sd = scales[cand.level]
-            sd_max = plan.scales[o][nl]
-            centers = None
-            if ext:
-                ref = refine_candidates_octave(dogs[o], cand.coords,
-                                               cand.level, params)
-                centers = cand.coords.to(torch.float32) + ref.offset
-                sd = sd * torch.exp2(ref.ds / nl)
-                sd_max *= 2.0 ** (1.0 / nl)
-            ori = assign_orientations(gpyr[o][1:1 + nl], cand.level,
-                                      cand.coords, sd, plan.level_units(o),
-                                      params, centers=centers, sd_max=sd_max,
-                                      fractional=ext)
-            accepted = ori.accepted & ref.edge_ok if ext else ori.accepted
-            lvl = cand.level.cpu().numpy().astype(np.int32)
-            cols["coords"].append((centers if ext else cand.coords)
-                                  .cpu().numpy())
-            cols["strength"].append(cand.strength.cpu().numpy())
-            cols["accepted"].append(accepted.cpu().numpy())
-            cols["R"].append(ori.R.cpu().numpy())
-            cols["octave"].append(np.full(len(lvl), o, np.int32))
-            cols["level"].append(lvl)
-            cols["sd"].append(sd.cpu().numpy() if ext else
-                              np.asarray(plan.scales[o], np.float64)[lvl + 1])
-        if not cols["coords"]:
-            return Keypoints.empty()
-        c = {k: np.concatenate(v) for k, v in cols.items()}
-        idx = np.nonzero(c["accepted"])[0]
-        strength = c["strength"].astype(np.float64)
+        S, L = gpyr_o.shape[:2]
+        if S == 1:       # one volume: its own stacks, no volume to decode
+            dog, dogmax = dog[0], dogmax[0]
+        cand = detect_extrema_octave(dog, dogmax, params)
+        if cand.level.numel() == 0:
+            return None
+        scales = torch.tensor(plan.scales[o][1:1 + nl],
+                              dtype=torch.float32, device=self.device)
+        sd = scales[cand.level]
+        sd_max = plan.scales[o][nl]
+        centers = None
+        if ext:
+            ref = refine_candidates_octave(dog, cand.coords, cand.level,
+                                           params, batch=cand.batch)
+            centers = cand.coords.to(torch.float32) + ref.offset
+            sd = sd * torch.exp2(ref.ds / nl)
+            sd_max *= 2.0 ** (1.0 / nl)
+        if cand.batch is None:
+            levels, lvl = gpyr_o[0, 1:1 + nl], cand.level
+        else:
+            # The sub-batch's levels as one stack [S * L, nx, ny, nz]:
+            # keypoint level l of volume b is stack level b * L + 1 + l.
+            levels = gpyr_o.reshape((S * L,) + tuple(gpyr_o.shape[2:]))
+            lvl = cand.batch * L + 1 + cand.level
+        ori = assign_orientations(levels, lvl, cand.coords, sd,
+                                  plan.level_units(o), params,
+                                  centers=centers, sd_max=sd_max,
+                                  fractional=ext)
+        accepted = ori.accepted & ref.edge_ok if ext else ori.accepted
+        K = cand.level.numel()
+        # Every column in f32 (exact for these values: coordinates and
+        # stack levels are below 2^24), one copy.
+        return torch.cat(
+            [centers if ext else cand.coords.to(torch.float32),
+             cand.strength[:, None], accepted.to(torch.float32)[:, None],
+             ori.R.reshape(K, 9)] + ([sd[:, None]] if ext else [])
+            + [lvl.to(torch.float32)[:, None]], dim=1).cpu().numpy()
+
+    def _keypoints(self, plan, parts, B) -> list[Keypoints]:
+        """Each volume's survivors, in candidate order, from the octaves'
+        host rows (_octave), decoded at once. The stale-strength column
+        is the volume's own: survivor j takes the strength of the volume's
+        j-th candidate."""
+        if not parts:
+            return [Keypoints.empty() for _ in range(B)]
+        L = plan.num_gpyr_levels
+        ext = self.params.extensions
+        rows = np.concatenate([p for *_, p in parts])
+        n = [len(p) for *_, p in parts]
+        octave = np.repeat(np.array([o for o, *_ in parts], np.int32), n)
+        v = rows[:, -1].astype(np.int32)
+        batched = np.repeat([S > 1 for _, _, S, _ in parts], n)
+        vol = np.repeat([s for _, s, _, _ in parts], n) \
+            + np.where(batched, v // L, 0)
+        level = np.where(batched, v % L - 1, v)
+        sd = (rows[:, 14].astype(np.float64) if ext else
+              np.asarray(plan.scales, np.float64)[octave, level + 1])
         stale = self.stale_strength_compat and not ext
-        return Keypoints(
-            coords=c["coords"][idx].astype(np.float64),
-            octave=c["octave"][idx], level=c["level"][idx],
-            sd=c["sd"][idx].astype(np.float64),
-            strength=strength[:len(idx)] if stale else strength[idx],
-            R=c["R"][idx].astype(np.float32))
+        out = []
+        for b in range(B):
+            mine = np.nonzero(vol == b)[0]
+            if not len(mine):
+                out.append(Keypoints.empty())
+                continue
+            idx = mine[rows[mine, 4] != 0]
+            strength = rows[mine if stale else idx, 3].astype(np.float64)
+            out.append(Keypoints(
+                coords=rows[idx, :3].astype(np.float64), octave=octave[idx],
+                level=level[idx], sd=sd[idx],
+                strength=strength[:len(idx)] if stale else strength,
+                R=rows[idx, 5:14].reshape(-1, 3, 3)))
+        return out
 
     # -- descriptors --------------------------------------------------------
 
@@ -159,34 +272,72 @@ class SIFT3D:
 
     def extract_descriptors(self, kp: Keypoints) -> Descriptors:
         self._verify_keys(kp)
+        if self._gpyr[0].shape[0] != 1:
+            raise ValueError("the detector holds a batch's pyramid; use "
+                             "extract_descriptors_batch")
+        return self._describe([kp])[0]
+
+    def extract_descriptors_batch(self, kps) -> list[Descriptors]:
+        """Descriptors of the keypoint lists of the last
+        detect_keypoints_batch (one per volume, in order); an empty list
+        gives empty descriptors."""
+        if self._gpyr is None:
+            raise ValueError(
+                "no Gaussian pyramid available; call detect_keypoints_batch "
+                "first")
+        if len(kps) != self._gpyr[0].shape[0]:
+            raise ValueError(f"{len(kps)} keypoint lists for a batch of "
+                             f"{self._gpyr[0].shape[0]} volumes")
+        for kp in kps:
+            if len(kp):
+                self._verify_keys(kp)
+        return self._describe(kps)
+
+    def _describe(self, kps) -> list[Descriptors]:
+        """Descriptors of volume b's keypoints kps[b], one kernel launch
+        and one host copy per octave for the whole batch."""
         plan = self._plan
         nl = self.params.num_kp_levels
-        n = len(kp)
+        B, L = self._gpyr[0].shape[:2]
         # Refined keypoints carry fractional coordinates and scales up to
         # 2^(1/nl) above the octave's top level: their windows take the
         # fractional-center margin (sift3d_tpu/pipeline.py:1700-1703,
         # 227-229).
-        refined = (not np.all(kp.coords == np.rint(kp.coords))
-                   or self.params.refine_subvoxel)
+        refined = (self.params.refine_subvoxel
+                   or any(not np.all(kp.coords == np.rint(kp.coords))
+                          for kp in kps))
         sd_fctr = 2.0 ** (1.0 / nl) if refined else 1.0
-        xyz = np.zeros((n, 3), np.float32)
-        sd_out = np.zeros((n,), np.float32)
-        data = np.zeros((n, DESC_NUMEL), np.float32)
+        out = [Descriptors(xyz=np.zeros((len(kp), 3), np.float32),
+                           sd=np.asarray(kp.sd, np.float32),
+                           data=np.zeros((len(kp), DESC_NUMEL), np.float32))
+               for kp in kps]
         dev = self.device
-        for o in np.unique(kp.octave):
-            idx = np.nonzero(kp.octave == o)[0]
+        octaves = np.unique(np.concatenate([kp.octave for kp in kps]))
+        for o in octaves:
             o = int(o)
+            sel = [np.nonzero(kp.octave == o)[0] for kp in kps]
 
-            def put(a, dtype):
-                return torch.as_tensor(np.ascontiguousarray(a[idx]),
-                                       dtype=dtype, device=dev)
-            sd = put(kp.sd, torch.float32)
+            def put(field, dtype):
+                a = np.concatenate([getattr(kp, field)[i]
+                                    for kp, i in zip(kps, sel)])
+                return torch.as_tensor(a, dtype=dtype, device=dev)
+            # The level in the batch's stack: volume b's level l is b*L+1+l.
+            stack = np.repeat(np.arange(B) * L + 1, [len(i) for i in sel])
+            g = self._gpyr[o]
             desc, xyz_o = _extract_octave(
-                self._gpyr[o][1:1 + nl], put(kp.level, torch.int64),
-                put(kp.coords, torch.float32), put(kp.R, torch.float32), sd,
-                o, plan.level_units(o), self.params,
-                sd_max=plan.scales[o][nl] * sd_fctr, fractional=refined)
-            data[idx] = desc.cpu().numpy()
-            xyz[idx] = xyz_o.cpu().numpy()
-            sd_out[idx] = sd.cpu().numpy()
-        return Descriptors(xyz=xyz, sd=sd_out, data=data)
+                g.reshape((B * L,) + tuple(g.shape[2:])),
+                torch.as_tensor(stack + np.concatenate(
+                    [kp.level[i] for kp, i in zip(kps, sel)]),
+                    dtype=torch.int64, device=dev),
+                put("coords", torch.float32), put("R", torch.float32),
+                put("sd", torch.float32), o, plan.level_units(o),
+                self.params, sd_max=plan.scales[o][nl] * sd_fctr,
+                fractional=refined)
+            host = torch.cat([desc, xyz_o], dim=1).cpu().numpy()
+            start = 0
+            for d, i in zip(out, sel):
+                rows = host[start:start + len(i)]
+                start += len(i)
+                d.data[i] = rows[:, :DESC_NUMEL]
+                d.xyz[i] = rows[:, DESC_NUMEL:]
+        return out

@@ -98,28 +98,32 @@ def make_plan(input_dims: Sequence[int], units: Sequence[float],
 
 def scale_to_unit(vol: torch.Tensor) -> torch.Tensor:
     """Scale to [-1, 1] by the max absolute value (im_scale,
-    imutil.c:697-713); a zero image passes through unchanged."""
-    m = vol.abs().max()
+    imutil.c:697-713); a zero image passes through unchanged. A batch
+    [B, nx, ny, nz] scales each volume by its own max."""
+    m = vol.abs().flatten(-3).amax(dim=-1)[(...,) + (None,) * 3]
     return torch.where(m == 0.0, vol, vol / m)
 
 
 def downsample_2x(vol: torch.Tensor) -> torch.Tensor:
-    """Every 2nd voxel; output dims floor(n/2) (im_downsample_2x,
-    imutil.c:591-617)."""
-    nx, ny, nz = (d // 2 for d in vol.shape)
-    return vol[: 2 * nx: 2, : 2 * ny: 2, : 2 * nz: 2].contiguous()
+    """Every 2nd voxel of each volume of [..., nx, ny, nz]; output dims
+    floor(n/2) (im_downsample_2x, imutil.c:591-617)."""
+    nx, ny, nz = (d // 2 for d in vol.shape[-3:])
+    return vol[..., : 2 * nx: 2, : 2 * ny: 2, : 2 * nz: 2].contiguous()
 
 
-def build_gpyr_and_dog(vol: torch.Tensor, plan: PyramidPlan):
+def build_gpyr_and_dog(vol: torch.Tensor, plan: PyramidPlan, gpyr=None):
     """Per octave: gpyr f32[L, nx, ny, nz], dog f32[L-1, nx, ny, nz] and
     dogmax f32[L-1] (per-level max |DoG|), each octave built by
-    ops.blur_kernel.chain_octave. vol is the [-1, 1]-scaled input."""
+    ops.blur_kernel.chain_octave. vol is the [-1, 1]-scaled input; a batch
+    vol f32[B, nx, ny, nz] gives the same with a leading batch axis, and
+    gpyr, where given, holds each octave's f32[B, L, nx, ny, nz] buffer."""
     from .ops.blur_kernel import chain_octave
     L = plan.num_gpyr_levels
+    bufs = gpyr if gpyr is not None else [None] * plan.num_octaves
     gpyr, dogs, dogmax = [], [], []
     for o in range(plan.num_octaves):
-        src = vol if o == 0 else downsample_2x(gpyr[o - 1][L - 3])
-        gp, dg, dm = chain_octave(src, plan, o)
+        src = vol if o == 0 else downsample_2x(gpyr[o - 1].select(-4, L - 3))
+        gp, dg, dm = chain_octave(src, plan, o, bufs[o])
         gpyr.append(gp)
         dogs.append(dg)
         dogmax.append(dm)

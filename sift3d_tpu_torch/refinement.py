@@ -39,13 +39,20 @@ class RefinementResult(NamedTuple):
 
 def refine_candidates_octave(dog_oct: torch.Tensor, coords: torch.Tensor,
                              lvl: torch.Tensor, params: DetectorParams,
-                             valid: torch.Tensor | None = None
+                             valid: torch.Tensor | None = None,
+                             batch: torch.Tensor | None = None
                              ) -> RefinementResult:
     """Refinement of one octave's candidates.
 
     dog_oct f32[num_dog_levels, nx, ny, nz]; coords i64[K, 3] interior
     voxels ([1, n-2]); lvl i64[K] keypoint level, whose DoG level is
-    lvl + 1. valid bool[K] (default all) marks the real candidates."""
+    lvl + 1. valid bool[K] (default all) marks the real candidates. For a
+    batch, dog_oct f32[B, num_dog_levels, nx, ny, nz] and batch i64[K] the
+    volume of each candidate, whose neighbourhood comes from dog_oct[b]."""
+    if batch is not None:
+        Ld = dog_oct.shape[1]
+        dog_oct = dog_oct.reshape((-1,) + tuple(dog_oct.shape[2:]))
+        lvl = batch * Ld + lvl
     nb4 = gather_neighbourhoods(dog_oct, coords, lvl)   # [K, 3, 3, 3, 3]
     if valid is None:
         valid = torch.ones(coords.shape[0], dtype=torch.bool,
@@ -56,8 +63,8 @@ def refine_candidates_octave(dog_oct: torch.Tensor, coords: torch.Tensor,
 
 def gather_neighbourhoods(dog_oct: torch.Tensor, coords: torch.Tensor,
                           lvl: torch.Tensor) -> torch.Tensor:
-    """f32[K, 3, 3, 3, 3]: DoG levels lvl..lvl+2 by 3x3x3 voxels around
-    each candidate."""
+    """f32[K, 3, 3, 3, 3]: DoG levels lvl..lvl+2 (of the stack dog_oct,
+    levels first) by 3x3x3 voxels around each candidate."""
     r = torch.arange(3, device=dog_oct.device)
     L = (lvl[:, None] + r)[:, :, None, None, None]
     ix, iy, iz = (coords[:, a, None] - 1 + r for a in range(3))

@@ -295,3 +295,135 @@ def test_register_on_card(dev):
     Ac, mc = reg.ransac_affine(src, dst, weights=w, device="cpu")
     assert np.array_equal(mg, mc)
     assert np.abs(Ag - Ac).max() <= 1e-3
+
+
+@pytest.mark.parametrize("shape, units", [
+    ((33, 20, 45), (1, 1, 1)),
+    ((40, 36, 44), (0.5, 0.5, 1.0)),    # 34-tap bands in x and y
+])
+def test_blur_chain_batch_bit_exact(dev, shape, units):
+    """A batch of three volumes through the chain: each volume's octaves
+    equal its own plain chain bit for bit (levels, DoG, max |DoG| per
+    volume), with as many launches as one volume takes."""
+    from sift3d_tpu_torch.ops import blur_kernel as bk
+    from sift3d_tpu_torch.params import DetectorParams
+    from sift3d_tpu_torch.pyramid import build_gpyr_and_dog, make_plan
+    plan = make_plan(shape, units, DetectorParams())
+    x = torch.stack([_rand(shape, s, dev) for s in (1, 2, 3)])
+    n0 = (bk.blur_x_launches, bk.blur_yz_dog_launches)
+    got = build_gpyr_and_dog(x, plan)
+    L = plan.num_gpyr_levels
+    levels = L + (plan.num_octaves - 1) * (L - 1)
+    assert bk.blur_x_launches - n0[0] == levels
+    assert bk.blur_yz_dog_launches - n0[1] == levels
+    for b in range(3):
+        ref = build_gpyr_and_dog(x[b].cpu(), plan)
+        for o in range(plan.num_octaves):
+            for a, r in zip(got, ref):
+                assert torch.equal(a[o][b].cpu(), r[o]), (b, o)
+
+
+@pytest.mark.parametrize("cuboid", [False, True])
+def test_extrema_candidates_batch_identical(dev, cuboid):
+    """One launch for a batch of stacks: each volume's keys offset by b
+    times its key range and counts [B, nl] equal the per-volume plain
+    route, also through the capacity relaunch."""
+    from sift3d_tpu_torch.ops import extrema_kernel as ek
+    dog = _rand((3, 5, 21, 40, 70), 2, dev)
+    thr = torch.tensor([[0.1, 0.2, 0.0], [0.3, 0.0, 0.1], [0.0, 0.0, 0.0]],
+                       device=dev)
+    per = 3 * 21 * 40 * 70
+    ref = [ek.extrema_candidates_plain(dog[b].cpu(), thr[b].cpu(), cuboid)
+           for b in range(3)]
+    rk = torch.cat([torch.sort(k).values + b * per
+                    for b, (k, _) in enumerate(ref)])
+    fits = rk.numel() <= ek.default_capacity(dog.shape)
+    for cap in (None, 1):
+        n0 = ek.launches
+        keys, counts = _candidates(ek, dog, thr, cuboid, capacity=cap)
+        assert ek.launches - n0 == (1 if cap is None and fits else 2)
+        assert torch.equal(keys, rk)
+        assert torch.equal(counts, torch.stack([c for _, c in ref]))
+
+
+def test_orient_and_desc_on_a_batch_stack(dev):
+    """s3d_orient and s3d_desc_fused on a batch's flattened level stack
+    [B * L, ...] (keypoint level l of volume b at b * L + 1 + l) give each
+    volume's own launch bit for bit (orientation) and the plain version's
+    histograms within rel-L2 1e-5."""
+    from sift3d_tpu_torch.ops import desc_kernel as dk
+    from sift3d_tpu_torch.ops import ori_kernel as ok
+    from sift3d_tpu_torch.params import DetectorParams
+    params = DetectorParams()
+    B, L, shape = 3, 6, (30, 28, 33)
+    gpyr = _rand((B, L) + shape, 21, dev)
+    K = 12
+    lvl, coords, sd = _octave_keypoints(dev, K, shape, 3, 22)
+    b = torch.arange(K, device=dev) % B
+    stack = gpyr.reshape((B * L,) + shape)
+    got = ok.orient(stack, b * L + 1 + lvl, coords, sd, (1, 1, 1), params)
+    for v in range(B):
+        sel = b == v
+        one = ok.orient(gpyr[v, 1:4], lvl[sel], coords[sel],
+                        sd[sel].contiguous(), (1, 1, 1), params)
+        assert torch.equal(one.A, got.A[sel]) and torch.equal(one.R,
+                                                              got.R[sel])
+    Q, _ = torch.linalg.qr(_rand((K, 3, 3), 23, dev))
+    args = (stack, b * L + 1 + lvl, coords.float(), Q.contiguous(), sd,
+            (1, 1, 1), params, 3.2)
+    h = dk.desc_fused(*args)
+    ref = dk.desc_fused_plain(*args)
+    rel = (h - ref).reshape(K, -1).norm(dim=1) / ref.reshape(K, -1).norm(
+        dim=1).clamp(min=1e-30)
+    assert bool((rel <= 1e-5).all()), rel
+
+
+def test_batch_pipeline_on_card(dev):
+    """detect_keypoints_batch on the card: each volume's rows equal its own
+    detect_keypoints on the card, descriptors within rel-L2 1e-5 (the
+    descriptor kernel's atomics add in a changing order), with the launches
+    of one volume for the blur and the extrema."""
+    import sift3d_tpu_torch as st
+    from sift3d_tpu_torch.ops import blur_kernel as bk
+    from sift3d_tpu_torch.ops import extrema_kernel as ek
+    from sift3d_tpu_torch.phantoms import bench_volume
+    vols = torch.stack([bench_volume("sparse", 64, dev),
+                        bench_volume("sparse", 64, dev, seed=5),
+                        bench_volume("dense", 64, dev)])
+    det = st.SIFT3D(st.DetectorParams(), dev)
+    one = st.SIFT3D(st.DetectorParams(), dev)
+    n0 = (bk.blur_x_launches, ek.launches)
+    one.detect_keypoints(vols[0])
+    n1 = (bk.blur_x_launches, ek.launches)
+    kps = det.detect_keypoints_batch(vols)
+    n2 = (bk.blur_x_launches, ek.launches)
+    assert tuple(b - a for a, b in zip(n1, n2)) == \
+        tuple(b - a for a, b in zip(n0, n1))
+    dss = det.extract_descriptors_batch(kps)
+    for v in range(3):
+        kp = one.detect_keypoints(vols[v])
+        for f in ("coords", "octave", "level", "sd", "strength", "R"):
+            assert np.array_equal(getattr(kp, f), getattr(kps[v], f)), f
+        if len(kp):
+            d = one.extract_descriptors(kp)
+            norm = np.linalg.norm(d.data, axis=1)
+            rel = (np.linalg.norm(d.data - dss[v].data, axis=1)
+                   / np.where(norm > 0, norm, 1.0))
+            assert rel.max() <= 1e-5
+
+
+def test_loader_uploads_on_card(dev, tmp_path):
+    """BatchVolumeLoader(device="cuda"): pinned reads uploaded on the
+    loader's stream, the consumer's stream waiting on the copy; the batches
+    equal the CPU loader's."""
+    from sift3d_tpu_torch.io import BatchVolumeLoader, write_volume
+    paths = []
+    for i in range(5):
+        paths.append(tmp_path / f"v{i}.nii{'.gz' if i == 4 else ''}")
+        write_volume(paths[-1], np.random.default_rng(i).normal(
+            size=(20, 18, 16)).astype(np.float32))
+    gpu = list(BatchVolumeLoader(paths, batch_size=2, device=dev))
+    cpu = list(BatchVolumeLoader(paths, batch_size=2, device="cpu"))
+    assert [v.shape[0] for v, _ in gpu] == [2, 2, 1]
+    for (g, gu), (c, cu) in zip(gpu, cpu):
+        assert g.is_cuda and gu == cu and torch.equal(g.cpu(), c)

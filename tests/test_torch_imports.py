@@ -17,12 +17,14 @@ import sys
 import sift3d_tpu_torch
 import sift3d_tpu_torch.cli, sift3d_tpu_torch.io
 import sift3d_tpu_torch.refinement, sift3d_tpu_torch.registration
+import sift3d_tpu_torch.io.loader
+from sift3d_tpu_torch import native
 from sift3d_tpu_torch.ops import (_build, blur_kernel, desc_kernel,
                                   extrema_kernel, ori_kernel)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "sift3d_tpu", "triton"))
 print("BAD", bad)
-print("LIB", _build._lib)
+print("LIB", _build._lib, native._lib)
 """
 
 
@@ -32,8 +34,9 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
-    # Nothing is built or loaded at import: nvcc runs at the first launch.
-    assert "LIB None" in r.stdout, r.stdout
+    # Nothing is built or loaded at import: nvcc runs at the first launch,
+    # g++ at the first native call.
+    assert "LIB None None" in r.stdout, r.stdout
 
 
 def test_kernel_sources_exist_and_export_entry_points():
@@ -49,9 +52,11 @@ def test_kernel_sources_exist_and_export_entry_points():
 
 
 def test_build_dir_is_git_ignored():
+    from sift3d_tpu_torch import native
     from sift3d_tpu_torch.ops import _build
     rel = _build.BUILD_DIR.relative_to(REPO)
     assert rel.parts[0] == "build"
+    assert native.BUILD_DIR == _build.BUILD_DIR
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored and "*.so" in ignored
 
@@ -85,10 +90,12 @@ def test_wrappers_use_plain_version_only_on_cpu(mod, fn, args):
     assert hasattr(m, f"{fn}_plain")
 
 
-@pytest.mark.parametrize("mod", ["refinement", "registration"])
+@pytest.mark.parametrize("mod", ["refinement", "registration", "pipeline",
+                                 "io/loader", "native"])
 def test_new_modules_import_torch_and_no_jax(mod):
-    """refinement.py and registration.py name torch and nothing of jax or
-    of the JAX package in their imports."""
+    """refinement.py, registration.py, the batch pipeline, the loader and
+    the native runtime's bindings name nothing of jax or of the JAX
+    package in their imports (the bindings need no torch)."""
     import ast
     tree = ast.parse((REPO / "sift3d_tpu_torch" / f"{mod}.py").read_text())
     names = set()
@@ -97,5 +104,5 @@ def test_new_modules_import_torch_and_no_jax(mod):
             names |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.add(node.module.split(".")[0])
-    assert "torch" in names
+    assert ("torch" in names) == (mod != "native")
     assert not names & {"jax", "jaxlib", "sift3d_tpu"}, names

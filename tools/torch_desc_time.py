@@ -44,7 +44,7 @@ def main() -> int:
             def put(a, dtype):
                 return torch.as_tensor(np.ascontiguousarray(a[idx]),
                                        dtype=dtype, device="cuda")
-            call = (det._gpyr[o][1:1 + nl], put(kp.level, torch.int64),
+            call = (det._gpyr[o][0, 1:1 + nl], put(kp.level, torch.int64),
                     put(kp.coords, torch.float32), put(kp.R, torch.float32),
                     put(kp.sd, torch.float32), det._plan.level_units(o),
                     params, det._plan.scales[o][nl])

@@ -27,6 +27,17 @@ parameters and with refine_subvoxel=True. It holds the true affine, each
 configuration's affine, match and inlier counts, and the JAX-warped
 moving volume sampled every 7th voxel along each axis.
 
+--register-batch N --pairs P writes torch_golden_batch{N}x{P}.npz: P pairs
+drawn as tools/bench_registration.py draws BASELINE config 5's batch
+(make_pair(N) P times from np.random.default_rng(3), after the 192^3
+pair), registered by the JAX package's register_batch with the default
+parameters. Per pair b it holds A_true{b}, affine{b} (NaN where JAX found
+no affine), matches{b}, inliers{b}, err{b} (corner error against the
+truth), idx{b}, JAX's RANSAC hypothesis indices for the pair
+(_sample_distinct4(PRNGKey(0), 500, matches{b}), which the port's RANSAC
+is fed to reproduce JAX's inliers), and moving_sample{b}, the moving
+volume every 7th voxel along each axis.
+
 XLA:CPU contracts the blur's multiply-then-add chain (pyramid._diag_pass)
 into fused multiply-adds under jit on CPUs with FMA, which moves the
 pyramid by ulps away from the eager (and the port's) arithmetic. The
@@ -35,7 +46,9 @@ FMA: the jitted pyramid then equals the eager one bit for bit.
 
 Usage: python tools/torch_golden.py [--dense] [--size N] [--units X,Y,Z]
                                     [--refine] [--edge-thresh R]
-                                    [--register N] [--out PATH]
+                                    [--register N]
+                                    [--register-batch N --pairs P]
+                                    [--out PATH]
 """
 
 from __future__ import annotations
@@ -114,6 +127,47 @@ def register_golden(n: int, out: Path) -> None:
     print(f"-> {out} ({out.stat().st_size} bytes)")
 
 
+def register_batch_golden(n: int, pairs: int, out: Path) -> None:
+    """The batch registration golden of P N^3 pairs (see the module
+    notes)."""
+    from bench_registration import affine_corner_error, make_pair
+    import jax
+    from sift3d_tpu import DetectorParams, SIFT3D
+    from sift3d_tpu.registration import _sample_distinct4, register_batch
+    rng = np.random.default_rng(3)
+    # The single-pair configuration's draws come first (make_pair(192):
+    # the angle, then the shift).
+    rng.uniform(6, 10)
+    rng.uniform(-4, 4, 3)
+    made = [make_pair(n, rng) for _ in range(pairs)]
+    params = DetectorParams(gpyr_impl="incremental", extrema_impl="xla")
+    t0 = time.perf_counter()
+    res = register_batch(np.stack([np.asarray(f.data) for f, _, _ in made]),
+                         np.stack([np.asarray(m.data) for _, m, _ in made]),
+                         num_iter=500, det=SIFT3D(params))
+    dt = time.perf_counter() - t0
+    rows = dict(size=np.int32(n), pairs=np.int32(pairs),
+                moving_stride=np.int32(MOVING_STRIDE))
+    for b, ((_, moving, A_true), r) in enumerate(zip(made, res)):
+        err = affine_corner_error(r.affine, A_true, n)
+        affine = (np.full((3, 4), np.nan, np.float32) if r.affine is None
+                  else r.affine)
+        rows[f"idx{b}"] = np.asarray(_sample_distinct4(
+            jax.random.PRNGKey(0), 500, jax.numpy.int32(r.num_matches)))
+        rows.update({f"A_true{b}": A_true, f"affine{b}": affine,
+                     f"matches{b}": np.int32(r.num_matches),
+                     f"inliers{b}": np.int32(r.num_inliers),
+                     f"err{b}": np.float64(err),
+                     f"moving_sample{b}": np.asarray(moving.data)[
+                         ::MOVING_STRIDE, ::MOVING_STRIDE, ::MOVING_STRIDE]})
+        print(f"batch{n}x{pairs} pair {b}: {r.num_matches} matches, "
+              f"{r.num_inliers} inliers, corner error {err:.4f} vox")
+    print(f"JAX CPU register_batch {dt:.1f} s")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(out, **rows)
+    print(f"-> {out} ({out.stat().st_size} bytes)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dense", action="store_true")
@@ -126,6 +180,10 @@ def main(argv=None) -> int:
                     help="Hessian edge rejection at this eigenvalue ratio")
     ap.add_argument("--register", type=int, metavar="N",
                     help="the registration golden of the N^3 pair")
+    ap.add_argument("--register-batch", type=int, metavar="N",
+                    help="the batch registration golden of --pairs N^3 "
+                         "pairs")
+    ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--out", type=Path, help="write here instead")
     args = ap.parse_args(argv)
     units = args.units
@@ -134,15 +192,21 @@ def main(argv=None) -> int:
             else "sparse" if units == (1.0, 1.0, 1.0) else "aniso")
     if args.register:
         cell, args.size = "register", args.register
+    suffix = f"{args.size}"
+    if args.register_batch:
+        cell, suffix = "batch", f"{args.register_batch}x{args.pairs}"
     out = args.out or (REPO / "tests" / "data"
-                       / f"torch_golden_{cell}{args.size}.npz")
+                       / f"torch_golden_{cell}{suffix}.npz")
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_cpu_max_isa=SSE4_2").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
-    if args.register:
+    if args.register or args.register_batch:
         sys.path.insert(0, str(REPO / "tools"))
-        register_golden(args.register, out)
+        if args.register_batch:
+            register_batch_golden(args.register_batch, args.pairs, out)
+        else:
+            register_golden(args.register, out)
         return 0
     from bench import make_bench_volume, make_dense_volume
     from sift3d_tpu import DetectorParams, SIFT3D

@@ -3,7 +3,8 @@
 A variant is either a tile size the wrappers' pickers could choose (the
 x pass's tx, the y/z pass's ty and planes per block xs) or a copy of a
 kernel source with one line substituted, built with nvcc into its own
-library under build/variants/. Each runs at the 256^3 sparse phantom's
+library under build/variants/. Each runs on one volume (a batch of one)
+at the 256^3 sparse phantom's
 octave-0 shapes (bench.make_bench_volume, built on the card), is checked
 against the plain version (the blur bit for bit, the extrema candidates
 identical), and is timed with CUDA events over 20 back-to-back launches
@@ -31,9 +32,11 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 OUT = REPO / "build" / "variants"
 
-VEC_X = ("      plane % 4 == 0 && "
-         "reinterpret_cast<uintptr_t>(src) % 16 == 0);", "      false);")
-VEC_YZ = ("      nz % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0);",
+VEC_X = ("      plane % 4 == 0 && src_bs % 4 == 0 &&\n"
+         "          reinterpret_cast<uintptr_t>(src) % 16 == 0);",
+         "      false);")
+VEC_YZ = ("      nz % 4 == 0 && src_bs % 4 == 0 &&\n"
+          "          reinterpret_cast<uintptr_t>(src) % 16 == 0);",
           "      false);")
 UNROLL = "constexpr int kUnroll = 4;"
 CHUNK = "constexpr int kChunk = 2048;"
@@ -132,7 +135,7 @@ def main() -> int:
                 def run_x():
                     assert lib.s3d_blur_x(
                         src.data_ptr(), tmp.data_ptr(), wx.data_ptr(), bx,
-                        lox, nx, ny, nz, tx, smem, stream) == 0
+                        lox, 1, 0, 0, nx, ny, nz, tx, smem, stream) == 0
                 tmp.zero_()
                 run_x()
                 assert torch.equal(tmp, xr), (name, tx)
@@ -144,8 +147,8 @@ def main() -> int:
                     assert lib.s3d_blur_yz_dog(
                         xr.data_ptr(), prev.data_ptr(), cur.data_ptr(),
                         dog.data_ptr(), dm.data_ptr(), wy.data_ptr(), by, loy,
-                        wz.data_ptr(), bz, loz, nx, ny, nz, ty, 64, xs, smem,
-                        stream) == 0
+                        wz.data_ptr(), bz, loz, 1, 0, 0, 0, 0, 0, nx, ny, nz,
+                        ty, 64, xs, smem, stream) == 0
                 cur.zero_()
                 run_yz()
                 assert torch.equal(cur, cr) and torch.equal(dog, dr)
@@ -166,8 +169,8 @@ def main() -> int:
             def run_e():
                 assert lib.s3d_extrema_candidates(
                     d.data_ptr(), thr.data_ptr(), keys.data_ptr(),
-                    counts.data_ptr(), keys.numel(), nl, nx, ny, nz, cuboid,
-                    stream) == 0
+                    counts.data_ptr(), keys.numel(), 1, nl, nx, ny, nz,
+                    cuboid, stream) == 0
             counts.zero_()
             run_e()
             n = int(counts[0])

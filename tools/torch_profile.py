@@ -4,9 +4,13 @@ Runs SIFT3D(device="cuda") detect_keypoints + extract_descriptors on a
 --size (256) bench phantom (bench.make_bench_volume, or make_dense_volume
 with --dense, built on the card by sift3d_tpu_torch.phantoms), with
 --refine under DetectorParams(refine_subvoxel=True, edge_thresh=10.0)
-(BASELINE config 2), and prints:
+(BASELINE config 2), or with --batch B detect_keypoints_batch +
+extract_descriptors_batch on B such phantoms (the bench one and B - 1
+drawn from seeds 101, 102, ...), and prints, per volume or per batch:
  - the wall time of detect and of describe, each ending in a device sync
-   (median of 7 runs after a warm-up);
+   (median of --repeats runs, default 7, after a warm-up, with the spread
+   between the quartiles); the input comes from host memory, or with
+   --on-card from a tensor already on the card (no upload);
  - from torch.profiler over one more run: device time by kernel, its sum,
    and that sum as a share of the profiled wall time (the device's busy
    share; the rest is host time with the device idle), and the number of
@@ -17,7 +21,14 @@ with --dense, built on the card by sift3d_tpu_torch.phantoms), with
    allocated when describe started (the pyramid it reads).
 --table PATH also writes the profiler's full table there.
 
+It calls only detect_keypoints and extract_descriptors (or their batch
+forms), so a parent/change A/B runs this file in both trees: unpack the
+other tree with ``git archive``, copy this file into its tools/, and run
+the copies in turn in one call (A, B, B, A); tools/torch_ab_wall.py
+alternates the two trees run by run in one process instead.
+
 Usage: python tools/torch_profile.py [--dense] [--size N] [--refine]
+                                     [--batch B] [--on-card] [--repeats N]
                                      [--table PATH]
 """
 
@@ -30,9 +41,10 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-REPEATS = 7
 
 
 def _device_us(evt) -> float:
@@ -48,6 +60,12 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--refine", action="store_true",
                     help="subvoxel refinement and edge rejection on")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="a batch of this many volumes")
+    ap.add_argument("--on-card", action="store_true",
+                    help="the input already on the card (no upload)")
+    ap.add_argument("--repeats", type=int, default=7,
+                    help="runs the wall times are the median of")
     ap.add_argument("--table", metavar="PATH",
                     help="write the full profiler table to this file")
     args = ap.parse_args(argv)
@@ -67,37 +85,54 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     cell = (f"{'dense' if args.dense else 'sparse'}{args.size}"
-            f"{' refined' if args.refine else ''}")
-    vol = bench_volume("dense" if args.dense else "sparse", args.size,
-                       "cuda").cpu().numpy()
+            f"{' refined' if args.refine else ''}"
+            f"{f' batch of {args.batch}' if args.batch else ''}"
+            f"{', input on the card' if args.on_card else ''}")
+    kind = "dense" if args.dense else "sparse"
+    vol = bench_volume(kind, args.size, "cuda").cpu().numpy()
+    if args.batch:
+        vol = np.stack([vol] + [
+            bench_volume(kind, args.size, "cuda", seed=100 + b).cpu().numpy()
+            for b in range(1, args.batch)])
+    if args.on_card:
+        vol = torch.from_numpy(vol).cuda()
     params = (st.DetectorParams(refine_subvoxel=True, edge_thresh=10.0)
               if args.refine else st.DetectorParams())
     det = st.SIFT3D(params, "cuda")
+    if args.batch:
+        detect, describe = det.detect_keypoints_batch, \
+            det.extract_descriptors_batch
+    else:
+        detect, describe = det.detect_keypoints, det.extract_descriptors
 
     def run():
         t0 = time.perf_counter()
-        kp = det.detect_keypoints(vol)
+        kp = detect(vol)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        det.extract_descriptors(kp)
+        describe(kp)
         torch.cuda.synchronize()
-        return len(kp), (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+        n = sum(len(k) for k in kp) if args.batch else len(kp)
+        return n, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
 
     run()
-    runs = [run() for _ in range(REPEATS)]
+    runs = [run() for _ in range(args.repeats)]
     n_kp = runs[0][0]
     det_ms = statistics.median(r[1] for r in runs)
     desc_ms = statistics.median(r[2] for r in runs)
-    tot_ms = statistics.median(r[1] + r[2] for r in runs)
+    tot = [r[1] + r[2] for r in runs]
+    q1, _, q3 = (statistics.quantiles(tot, n=4) if len(tot) > 1
+                 else (tot[0],) * 3)
     print(f"{cell}: {n_kp} keypoints on {card}")
-    print(f"  wall median over {REPEATS}: detect {det_ms:.2f} ms, "
-          f"describe {desc_ms:.2f} ms, total {tot_ms:.2f} ms")
+    print(f"  wall median over {args.repeats}: detect {det_ms:.2f} ms, "
+          f"describe {desc_ms:.2f} ms, total {statistics.median(tot):.2f} "
+          f"ms (quartiles {q1:.2f}-{q3:.2f})")
 
-    kp = det.detect_keypoints(vol)
+    kp = detect(vol)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    det.extract_descriptors(kp)
+    describe(kp)
     torch.cuda.synchronize()
     mib = 2.0 ** 20
     print(f"  describe memory: {base / mib:.1f} MiB allocated at its start, "
