@@ -37,9 +37,25 @@ pair against the JAX golden (tests/data/torch_golden_batch256x4.npz: the
 matches, the inliers with RANSAC fed JAX's own hypothesis indices, the
 corner error with the port's), with the launches per batch against one
 volume's, pairs/s, ms per volume and peak memory;
-last the batch loader: the eight volumes written as NIfTI (one .nii.gz)
-and read back by BatchVolumeLoader(device="cuda") into
+the same batch with its eight volumes over a 'b' mesh axis of four
+entries of the card (register_batch(mesh=...), MeshBatchSIFT3D), equal to the unsharded
+run; last the batch loader: the eight volumes written as NIfTI (one
+.nii.gz) and read back by BatchVolumeLoader(device="cuda") into
 detect_keypoints_batch, identical to the in-memory batch.
+
+The descriptor kernel sums in exact integers: its three runs, the batch
+against each volume's own launch (the dense256 octave 0 among them) and
+the batch256x4 descriptors against each volume's own run are held bit for
+bit. The parallel path (sift3d_tpu_torch.parallel): each of the four
+kernels on the four haloed z-slabs of sparse256 octave 0 that
+ShardedSIFT3D gives it, against one whole-volume launch, bit for bit
+(rows *_shard, timed as the four slab launches back to back); then
+ShardedSIFT3D on four shards of the card ("cuda:0" four times) on
+sparse256 and refine128, against their goldens and bit for bit against the
+single-device port, every shard launching the blur kernels once per level
+and the extrema kernel at least once, and on the sparse bench phantom at
+512^3 bit for bit against the single-device port, with walls, peak memory
+and the pyramid each shard holds.
 
 Prints the card (nvidia-smi name, power limit), versions and build time,
 one line per phase, a JSON line of per-kernel results (time, plain time,
@@ -85,6 +101,10 @@ BATCH_PHANTOMS = (("sparse", None), ("dense", None), ("sparse", 3),
                   ("sparse", 17), ("dense", 19))
 REPS = 7
 KERNEL_INNER = 20
+# Shards of ShardedSIFT3D and entries of the batch's mesh axis, all on the
+# one card; the cells run sharded too.
+SHARDS = 4
+SHARDED_CELLS = ("sparse256", "refine128")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES = 3.35e12
@@ -212,6 +232,11 @@ def main() -> int:
     from sift3d_tpu_torch.ops import desc_kernel as dk
     from sift3d_tpu_torch.ops import extrema_kernel as ek
     from sift3d_tpu_torch.ops import ori_kernel as ok
+    from sift3d_tpu_torch.parallel import MeshBatchSIFT3D, ShardedSIFT3D, \
+        make_mesh, z_extend
+    from sift3d_tpu_torch.parallel.halo import diag_halo
+    from sift3d_tpu_torch.parallel.spatial import (build_gpyr_sharded,
+                                                   desc_halo, ori_halo)
     from sift3d_tpu_torch.phantoms import bench_volume
     from sift3d_tpu_torch.pyramid import (build_gpyr_and_dog, make_plan,
                                           scale_to_unit)
@@ -254,7 +279,8 @@ def main() -> int:
 
     def blur_phase():
         gpyr, dogs, dmax = build_gpyr_and_dog(x, plan)
-        st_.update(gpyr=gpyr[0], dog=dogs[0], dogmax=dmax[0])
+        st_.update(gpyr=gpyr[0], dog=dogs[0], dogmax=dmax[0],
+                   pyr=(gpyr, dogs, dmax))
         N = x.numel()
         tmp, cur, dog = (torch.empty_like(x) for _ in range(3))
         dm = torch.zeros(1, device=dev)
@@ -368,7 +394,7 @@ def main() -> int:
         def kernel():
             _build.call("s3d_extrema_candidates", dog.data_ptr(),
                         thr.data_ptr(), keys.data_ptr(), counts.data_ptr(),
-                        keys.numel(), 1, nl, nx, ny, nz, 0,
+                        keys.numel(), 1, nl, nx, ny, nz, 1, nz - 2, 0, nz, 0,
                         _build.stream_ptr(dog))
         ms = cuda_ms(torch, kernel, inner=KERNEL_INNER)
         wms = cuda_ms(torch, lambda: ek.extrema_candidates(dog, thr))
@@ -539,8 +565,8 @@ def main() -> int:
         K = ref.shape[0]
         rn = ref.reshape(K, -1).norm(dim=1)
         rel = [((h - ref).reshape(K, -1).norm(dim=1) / rn) for h in runs]
-        spread = max(float(((a - b).reshape(K, -1).norm(dim=1) / rn).max())
-                     for a in runs for b in runs)
+        # Exact integer sums: every run gives the same bits.
+        assert all(torch.equal(runs[0], h) for h in runs[1:])
         extents = dk.window_extents(sd_max, plan.units, plan.octave_dims[0],
                                     params, 4 if fractional else 0)
         grot, _ = dk.prep_windows(levels, lvl, centers.round().long(),
@@ -552,8 +578,8 @@ def main() -> int:
                             plan.octave_dims[0])
         print(f"       {name}: K={K} keypoints, {box:.0f} box voxels, "
               f"{work:.0f} in sphere and cube; rel-L2 vs plain per run "
-              f"{[float(r.max()) for r in rel]}, spread over 3 runs "
-              f"{spread:.3g}", flush=True)
+              f"{[float(r.max()) for r in rel]}; 3 runs bit-identical",
+              flush=True)
         assert all(bool((r <= 1e-5).all()) for r in rel)
         ms = cuda_ms(torch, lambda: dk.desc_fused(*args), inner=KERNEL_INNER)
         pms = cuda_ms(torch, lambda: dk.desc_fused_plain(*args), reps=5)
@@ -672,8 +698,8 @@ def main() -> int:
         def kernel():
             _build.call("s3d_extrema_candidates", dog.data_ptr(),
                         thr.data_ptr(), kbuf.data_ptr(), cbuf.data_ptr(),
-                        kbuf.numel(), B, nl, *dims, 0,
-                        _build.stream_ptr(dog))
+                        kbuf.numel(), B, nl, *dims, 1, dims[2] - 2, 0,
+                        dims[2], 0, _build.stream_ptr(dog))
         ms = cuda_ms(torch, kernel, inner=KERNEL_INNER)
         pms = cuda_ms(torch, lambda: [ek.extrema_candidates_plain(
             dog[b], thr[b]) for b in range(B)], reps=3)
@@ -709,6 +735,29 @@ def main() -> int:
         desc_check(f"desc_fused_batch{B}", lvl[acc],
                    centers[acc].contiguous(), got.R[acc].contiguous(),
                    sd[acc].contiguous(), plan.scales[0][nl], False, levels)
+        # Each volume's own launch gives the batch's bits; the dense bench
+        # phantom (volume 1: dense256 octave 0) twice, and timed alone.
+        Rb = got.R.contiguous()
+        hist = dk.desc_fused(levels, lvl[acc], centers[acc].contiguous(),
+                             Rb[acc], sd[acc].contiguous(), plan.units,
+                             params, plan.scales[0][nl])
+        for b in range(B):
+            sel = (cand.batch == b) & acc
+            dargs = (gpyr[b, 1:1 + nl], cand.level[sel],
+                     centers[sel].contiguous(), Rb[sel], sd[sel].contiguous(),
+                     plan.units, params, plan.scales[0][nl])
+            one = dk.desc_fused(*dargs)
+            assert torch.equal(one, hist[sel[acc]]), b
+            if b == 1:
+                assert torch.equal(one, dk.desc_fused(*dargs))
+                dms = cuda_ms(torch, lambda: dk.desc_fused(*dargs),
+                              inner=KERNEL_INNER)
+                print(f"       desc_fused on dense256 octave 0 alone "
+                      f"({int(sel.sum())} keypoints): {dms:.4f} ms on "
+                      f"{card}", flush=True)
+        print(f"       desc_fused: each of the {B} volumes' own launch gives "
+              f"the batch's bits; dense256 octave 0 twice, the same bits",
+              flush=True)
         del gpyr, dog, tmp, xb
 
     def make_pair_on_card(n, rng, fixed):
@@ -786,10 +835,8 @@ def main() -> int:
         print(f"       batch of {2 * P} volumes: keypoint rows identical to "
               f"each volume's own detect_keypoints "
               f"({[len(k) for k in kps]}); descriptors: {bit_equal} of "
-              f"{total} bit-equal, max rel-L2 {worst:.3g} (the descriptor "
-              f"kernel adds with atomics, in an order that changes from "
-              f"run to run)", flush=True)
-        assert worst <= 1e-5
+              f"{total} bit-equal, max rel-L2 {worst:.3g}", flush=True)
+        assert bit_equal == total
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -926,13 +973,6 @@ def main() -> int:
     def main_path(cell):
         _, size, units, reps, ext = CELLS[cell]
         p = st.DetectorParams(**ext)
-        g = np.load(GOLDENS[cell])
-        assert int(g["size"]) == size
-        if "units" in g.files:
-            assert tuple(g["units"]) == units, g["units"]
-        if ext:
-            assert bool(g["refine_subvoxel"]) == p.refine_subvoxel
-            assert float(g["edge_thresh"]) == p.edge_thresh
         vol = st.Volume.from_array(vols[cell], units)
         det = st.SIFT3D(p, device="cuda")
         reset_counters()
@@ -955,7 +995,36 @@ def main() -> int:
                               ("eigh3x3", "eigh3x3")):
                 s.kernels.setdefault(name, {"name": name})["launches"] = \
                     launches[key]
+        st_[f"{cell}_result"] = (kp, desc)
+        check_golden(cell, p, kp, desc)
 
+        walls = []
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k = det.detect_keypoints(vol)
+            det.extract_descriptors(k)
+            torch.cuda.synchronize()
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        st_[f"{cell}_wall"] = statistics.median(walls)
+        print(f"       detect + describe {cell} (units {units}"
+              f"{', ' + str(ext) if ext else ''}), {len(kp)} keypoints: "
+              f"median {statistics.median(walls):.2f} ms wall over {reps} "
+              f"runs (min {min(walls):.2f}, max {max(walls):.2f}) on {card}",
+              flush=True)
+
+    def check_golden(cell, p, kp, desc):
+        """A cell's keypoints and descriptors against its JAX golden, to
+        the reference bars."""
+        _, size, units, _, ext = CELLS[cell]
+        g = np.load(GOLDENS[cell])
+        assert int(g["size"]) == size
+        if "units" in g.files:
+            assert tuple(g["units"]) == units, g["units"]
+        if ext:
+            assert bool(g["refine_subvoxel"]) == p.refine_subvoxel
+            assert float(g["edge_thresh"]) == p.edge_thresh
         assert len(kp) == len(g["coords"]), (len(kp), len(g["coords"]))
         for f in ("octave", "level"):
             assert np.array_equal(getattr(kp, f), g[f]), f
@@ -1012,6 +1081,242 @@ def main() -> int:
             assert np.array_equal(desc.xyz, g["desc_xyz"])
         assert np.all(np.isfinite(desc.data))
 
+    def slab_phase():
+        """The four kernels on the four z-slabs of sparse256 octave 0 that
+        ShardedSIFT3D gives them (each slab with its halo of the
+        neighbours' rows), against one whole-volume launch: bits equal;
+        each row timed as the four slab launches back to back."""
+        S, nz = SHARDS, plan.octave_dims[0][2]
+        n = nz // S
+        L = plan.num_gpyr_levels
+        slabs = [c.contiguous() for c in x.chunk(S, dim=-1)]
+        octs, flags = build_gpyr_sharded(slabs, plan, [dev] * S)
+        for o, sl in enumerate(octs):
+            assert torch.equal(torch.cat([t.gpyr for t in sl], -1),
+                               st_["pyr"][0][o]), o
+            assert torch.equal(torch.cat([t.dog for t in sl], -1),
+                               st_["pyr"][1][o]), o
+            assert torch.equal(torch.stack([t.dogmax for t in sl]).amax(0),
+                               st_["pyr"][2][o]), o
+        print(f"       pyramid of {S} slabs (octaves sharded {flags}) "
+              f"bit-equal to the whole volume's: levels, DoG, max |DoG|",
+              flush=True)
+        N = x.numel()
+        sums = {k: [0.0] * 5 for k in ("blur_x", "blur_yz_dog")}
+        g0 = st_["gpyr"]
+        for i in range(L):
+            srcs = slabs if i == 0 else [t.gpyr[i - 1] for t in octs[0]]
+            diags = bk._diags(plan, 0, i, dev)
+            (wx, lox), (wy, loy), (wz, loz) = diags
+            h = diag_halo(*plan.conv_diags(0, plan.first_taps if i == 0
+                                           else plan.level_taps[i])[2])
+            tmps = [torch.empty_like(t) for t in srcs]
+            for t, tm in zip(srcs, tmps):
+                bk.blur_x(t, wx, lox, tm)
+            exts = z_extend(tmps, h)
+            curs = [torch.empty_like(t) for t in srcs]
+            dogs = [torch.empty_like(t) for t in srcs] if i else None
+            dms = [torch.zeros(1, device=dev) for _ in srcs] if i else None
+
+            def yz():
+                for s_ in range(S):
+                    bk.blur_yz_dog(exts[s_], wy, loy, wz[s_ * n:(s_ + 1) * n],
+                                   loz, curs[s_], srcs[s_] if i else None,
+                                   dogs[s_] if i else None,
+                                   dms[s_] if i else None, z_off=h)
+            yz()
+            assert torch.equal(torch.cat(curs, -1), g0[i]), i
+            xms = cuda_ms(torch, lambda: [bk.blur_x(t, wx, lox, tm) for t, tm
+                                          in zip(srcs, tmps)],
+                          inner=KERNEL_INNER)
+            yzms = cuda_ms(torch, yz, inner=KERNEL_INNER)
+            hms = cuda_ms(torch, lambda: z_extend(tmps, h))
+            pxms = cuda_ms(torch, lambda: [bk.blur_x_plain(t, wx, lox)
+                                           for t in srcs], reps=3)
+            pyzms = cuda_ms(torch, lambda: [bk.blur_yz_dog_plain(
+                exts[s_], wy, loy, wz[s_ * n:(s_ + 1) * n], loz,
+                srcs[s_] if i else None, h) for s_ in range(S)], reps=3)
+            dogv = 1 if i else 0
+            Ne = sum(e.numel() for e in exts)
+            bxb = (8 * N, 2 * wx.shape[1] * N)
+            yzb = (4 * Ne + (4 + 8 * dogv) * N,
+                   2 * (wy.shape[1] * Ne + wz.shape[1] * N) + 3 * dogv * N)
+            for key, bb, ms, pms in (("blur_x", bxb, xms, pxms),
+                                     ("blur_yz_dog", yzb, yzms, pyzms)):
+                for j, v in enumerate((bb[0], bb[1], ms, pms)):
+                    sums[key][j] += v / L
+            print(f"       {S} slabs, level {i} (z halo {h}): x {xms:.4f} ms, "
+                  f"y/z{'+DoG' * dogv} {yzms:.4f} ms, halo exchange "
+                  f"{hms:.4f} ms; plain x {pxms:.4f}, y/z {pyzms:.4f} ms",
+                  flush=True)
+        for key in ("blur_x", "blur_yz_dog"):
+            nbytes, ops, ms, pms, _ = sums[key]
+            s.record(f"{key}_shard", "sift3d_tpu_torch/csrc/blur.cu",
+                     "sift3d_tpu/ops/blur_kernel.py:337", 0.0, ms, pms,
+                     getattr(bk, f"{key}_launches"), bound(nbytes, ops))
+
+        # Extrema: four DoG slabs with a one-voxel halo, global keys.
+        dog, dmax = st_["dog"], st_["dogmax"]
+        thr = (torch.tensor(params.peak_thresh, device=dev)
+               * dmax[1:1 + nl]).contiguous()
+        keys, counts = ek.extrema_candidates(dog, thr)
+        dexts = z_extend([c.contiguous() for c in dog.chunk(S, dim=-1)], 1)
+        parts = [ek.extrema_candidates(e, thr, z_origin=n * s_ - 1,
+                                       global_nz=nz, z_rows=(1, n + 1))
+                 for s_, e in enumerate(dexts)]
+        assert torch.equal(torch.sort(torch.cat([k for k, _ in parts]))
+                           .values, torch.sort(keys).values)
+        assert torch.equal(sum(c for _, c in parts), counts)
+        kbuf = torch.empty(ek.default_capacity(dog.shape), dtype=torch.int64,
+                           device=dev)
+        cbuf = torch.zeros(1 + nl, dtype=torch.int64, device=dev)
+        _, nx, ny, _ = dog.shape
+
+        def kernels():
+            for s_, e in enumerate(dexts):
+                zmin, zmax = ek.z_test_rows(n + 2, n * s_ - 1, nz, (1, n + 1))
+                _build.call("s3d_extrema_candidates", e.data_ptr(),
+                            thr.data_ptr(), kbuf.data_ptr(), cbuf.data_ptr(),
+                            kbuf.numel(), 1, nl, nx, ny, n + 2, zmin, zmax,
+                            n * s_ - 1, nz, 0, _build.stream_ptr(e))
+        ms = cuda_ms(torch, kernels, inner=KERNEL_INNER)
+        pms = cuda_ms(torch, lambda: [ek.extrema_candidates_plain(
+            e, thr, False, n * s_ - 1, nz, (1, n + 1))
+            for s_, e in enumerate(dexts)], reps=3)
+        cen = dog[1:1 + nl]
+        t = thr.reshape(nl, 1, 1, 1)
+        past = ((cen > t) | (cen < -t)).reshape(nl, -1).sum(dim=1)
+        outer = int(past[0]) + int(past[-1])
+        print(f"       extrema on {S} haloed DoG slabs: keys identical to the "
+              f"whole volume's ({keys.numel()}); slab kernels {ms:.4f} ms",
+              flush=True)
+        s.record("extrema_candidates_shard", "sift3d_tpu_torch/csrc/extrema.cu",
+                 "sift3d_tpu/ops/extrema_kernel.py:384", 0.0, ms, pms,
+                 ek.launches, bound(4 * cen.numel() + 4 * outer
+                                    + 8 * keys.numel() + 8 * S * (1 + nl),
+                                    2 * cen.numel() + 16 * int(past.sum())))
+
+        # Orientation and descriptors: each slab's candidates (those whose
+        # window centre it owns) on its levels extended by the windows'
+        # halo, with the slab's z origin.
+        cand = st_["cand"]
+        levels = st_["gpyr"][1:1 + nl]
+        lslabs = [c.contiguous() for c in levels.chunk(S, dim=-1)]
+        scales = torch.tensor(plan.scales[0][1:1 + nl], device=dev)
+        sd = scales[cand.level].contiguous()
+        centers = cand.coords.float().contiguous()
+        args = (levels, cand.level, cand.coords, sd, plan.units, params)
+        ref = ok.orient(*args, centers=centers)
+        h = ori_halo(plan, 0, params)
+        oext = z_extend(lslabs, h)
+        sels = [(cand.coords[:, 2] >= n * s_)
+                & (cand.coords[:, 2] < n * (s_ + 1)) for s_ in range(S)]
+        oargs = [(oext[s_], cand.level[m], cand.coords[m],
+                  sd[m].contiguous(), plan.units, params)
+                 for s_, m in enumerate(sels)]
+        okw = [dict(centers=centers[m].contiguous(), z_origin=n * s_ - h,
+                    global_nz=nz) for s_, m in enumerate(sels)]
+        for a, kw, m in zip(oargs, okw, sels):
+            got = ok.orient(*a, **kw)
+            for f in got._fields:
+                assert torch.equal(getattr(got, f), getattr(ref, f)[m]), f
+        ms = cuda_ms(torch, lambda: [ok.orient(*a, **kw)
+                                     for a, kw in zip(oargs, okw)],
+                     inner=KERNEL_INNER)
+        pms = cuda_ms(torch, lambda: [ok.orient_plain(*a, **kw)
+                                      for a, kw in zip(oargs, okw)], reps=3)
+        box, sphere = box_voxels(centers, sd, params.ori_sig_fctr,
+                                 params.ori_rad_fctr, plan.units,
+                                 plan.octave_dims[0])
+        K = cand.level.numel()
+        print(f"       orientation on {S} slabs (halo {h}): A, vd, R and "
+              f"flags of all {K} candidates bit-equal to the whole launch",
+              flush=True)
+        s.record("orient_shard", "sift3d_tpu_torch/csrc/ori.cu",
+                 "sift3d_tpu/ops/ori_kernel.py:167", 0.0, ms, pms,
+                 ok.launches, bound(4 * box + 76 * K, 11 * box + 40 * sphere))
+        acc = ref.accepted
+        R = ref.R[acc].contiguous()
+        dl, dc, dsd = cand.level[acc], centers[acc].contiguous(), \
+            sd[acc].contiguous()
+        dref = dk.desc_fused(levels, dl, dc, R, dsd, plan.units, params,
+                             plan.scales[0][nl])
+        hd = desc_halo(plan, 0, params, False)
+        dext = z_extend(lslabs, hd)
+        owner = torch.clamp(torch.round(dc[:, 2]).long() // n, 0, S - 1)
+        dargs = [(dext[s_], dl[owner == s_], dc[owner == s_],
+                  R[owner == s_], dsd[owner == s_], plan.units, params,
+                  plan.scales[0][nl], False, n * s_ - hd, nz)
+                 for s_ in range(S)]
+        for s_, a in enumerate(dargs):
+            assert torch.equal(dk.desc_fused(*a), dref[owner == s_]), s_
+        ms = cuda_ms(torch, lambda: [dk.desc_fused(*a) for a in dargs],
+                     inner=KERNEL_INNER)
+        pms = cuda_ms(torch, lambda: [dk.desc_fused_plain(*a)
+                                      for a in dargs], reps=3)
+        extents = dk.window_extents(plan.scales[0][nl], plan.units,
+                                    plan.octave_dims[0], params)
+        grot, _ = dk.prep_windows(levels, dl, dc.round().long(), dc, R, dsd,
+                                  plan.units, extents, params)
+        work = float((grot.abs().sum(dim=1) > 0).sum())
+        del grot
+        dbox, _ = box_voxels(dc, dsd, params.desc_sig_fctr,
+                             params.desc_rad_fctr, plan.units,
+                             plan.octave_dims[0])
+        print(f"       descriptors on {S} slabs (halo {hd}): all "
+              f"{dl.numel()} histograms bit-equal to the whole launch",
+              flush=True)
+        s.record("desc_fused_shard", "sift3d_tpu_torch/csrc/desc.cu",
+                 "sift3d_tpu/ops/desc_kernel.py:304", 0.0, ms, pms,
+                 dk.launches, bound(4 * dbox + 4 * dref.numel(),
+                                    DESC_OPS_PER_VOXEL * work))
+
+        # Slab 1's own rows without the windows' halo: the kernels read
+        # nothing outside a slab; the keypoints whose windows leave it read
+        # NaN (orientation: A, vd, R, and no flag set), the others keep
+        # their bits.
+        o1 = ok.orient(lslabs[1], *oargs[1][1:], **dict(okw[1], z_origin=n))
+        out = torch.isnan(o1.R).reshape(-1, 9).any(dim=1)
+        keep = ~out
+        assert bool(out.any()) and not bool(o1.accepted[out].any())
+        assert torch.equal(o1.R[keep], ref.R[sels[1]][keep])
+        d1 = dk.desc_fused(lslabs[1], *dargs[1][1:9], n, nz)
+        dout = torch.isnan(d1).reshape(d1.shape[0], -1)
+        assert bool(dout.all(dim=1).any())
+        assert torch.equal(d1[~dout.any(dim=1)],
+                           dref[owner == 1][~dout.any(dim=1)])
+        print(f"       slab 1 without the windows' halo: {int(out.sum())} of "
+              f"{out.numel()} orientations and {int(dout.all(dim=1).sum())} "
+              f"of {d1.shape[0]} descriptors read NaN, the rest bit-equal",
+              flush=True)
+
+    def sharded_path(cell):
+        """ShardedSIFT3D on SHARDS shards of the card: the cell's golden at
+        its bars (check_golden) and the single-device port's rows and
+        descriptors bit for bit, every shard launching the kernels."""
+        _, size, units, reps, ext = CELLS[cell]
+        p = st.DetectorParams(**ext)
+        vol = st.Volume.from_array(vols[cell], units)
+        det = ShardedSIFT3D(p, mesh=make_mesh({"z": SHARDS},
+                                              [dev] * SHARDS))
+        reset_counters()
+        kp = det.detect_keypoints(vol)
+        desc = det.extract_descriptors(kp)
+        launches = read_counters(p, f"ShardedSIFT3D, {cell}")
+        check_launches(det, launches)
+        if cell == "sparse256":
+            for name, k in launches.items():
+                row = f"{name}_shard"
+                s.kernels.setdefault(row, {"name": row})["launches"] = k
+        kp1, desc1 = st_[f"{cell}_result"]
+        for f in ("coords", "octave", "level", "sd", "strength", "R"):
+            assert np.array_equal(getattr(kp, f), getattr(kp1, f)), f
+        assert np.array_equal(desc.data, desc1.data)
+        assert np.array_equal(desc.xyz, desc1.xyz)
+        print(f"       {cell} on {SHARDS} shards (octaves sharded "
+              f"{det._shard_flags}): {len(kp)} keypoint rows and "
+              f"descriptors bit-equal to the single-device port", flush=True)
+        check_golden(cell, p, kp, desc)
         walls = []
         for i in range(reps + 1):
             torch.cuda.synchronize()
@@ -1021,10 +1326,138 @@ def main() -> int:
             torch.cuda.synchronize()
             if i:
                 walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"       detect + describe {cell} (units {units}"
-              f"{', ' + str(ext) if ext else ''}), {len(kp)} keypoints: "
-              f"median {statistics.median(walls):.2f} ms wall over {reps} "
-              f"runs (min {min(walls):.2f}, max {max(walls):.2f}) on {card}",
+        print(f"       ShardedSIFT3D detect + describe {cell} on {SHARDS} "
+              f"shards of one card: median {statistics.median(walls):.2f} ms "
+              f"wall over {reps} runs (min {min(walls):.2f}, max "
+              f"{max(walls):.2f}); single-device "
+              f"{st_[f'{cell}_wall']:.2f} ms; on {card}", flush=True)
+
+    def check_launches(det, launches):
+        """Every shard of a sharded octave launched the blur kernels once
+        per level and the extrema kernel at least once."""
+        L = plan.num_gpyr_levels
+        levels = sum((L if o == 0 else L - 1) * len(sl)
+                     for o, sl in enumerate(det._octaves))
+        assert launches["blur_x"] == launches["blur_yz_dog"] == levels, \
+            (launches, levels)
+        assert launches["extrema_candidates"] >= sum(
+            len(sl) for sl in det._octaves)
+
+    def sharded512_phase():
+        """The full-width case the sharding serves: the sparse bench
+        phantom at 512^3 through ShardedSIFT3D (SHARDS shards on one card)
+        and SIFT3D, bit for bit; walls and memory."""
+        vol = st.Volume.from_array(bench_volume("sparse", 512, dev),
+                                   device=dev)
+        p = st.DetectorParams()
+        one = st.SIFT3D(p, device=dev)
+        det = ShardedSIFT3D(p, mesh=make_mesh({"z": SHARDS},
+                                              [dev] * SHARDS))
+        res, walls, peaks = {}, {}, {}
+        for name, d in (("single", one), ("sharded", det)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counters()
+            t0 = time.perf_counter()
+            kp = d.detect_keypoints(vol)
+            ds = d.extract_descriptors(kp)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            launches = read_counters(p, f"512^3 sparse, {name}")
+            if name == "sharded":
+                check_launches(det, launches)
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            res[name] = (kp, ds)
+            w = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                d.extract_descriptors(d.detect_keypoints(vol))
+                torch.cuda.synchronize()
+                w.append((time.perf_counter() - t0) * 1e3)
+            walls[name] = (first, w)
+        (k1, d1), (k2, d2) = res["single"], res["sharded"]
+        for f in ("coords", "octave", "level", "sd", "strength", "R"):
+            assert np.array_equal(getattr(k1, f), getattr(k2, f)), f
+        assert np.array_equal(d1.data, d2.data)
+        assert np.array_equal(d1.xyz, d2.xyz)
+        assert len(k1) > 0 and np.all(np.isfinite(d1.data))
+        held = []
+        for s_ in range(SHARDS):
+            b = 0
+            for sl in det._octaves:
+                if len(sl) > 1:
+                    b += sl[s_].gpyr.numel() * 4
+                elif s_ == 0:
+                    b += sl[0].gpyr.numel() * 4
+            held.append(b / 2 ** 20)
+        print(f"       512^3 sparse: {len(k1)} keypoints, rows and "
+              f"descriptors of {SHARDS} shards bit-equal to one device "
+              f"(octaves sharded {det._shard_flags})", flush=True)
+        for name in ("single", "sharded"):
+            first, w = walls[name]
+            print(f"       512^3 {name}: first call {first:.2f} ms, then "
+                  f"{[round(v, 2) for v in w]} ms wall; peak memory "
+                  f"{peaks[name]:.1f} MiB above what was held", flush=True)
+        print(f"       512^3 sharded: pyramid held per shard after detection "
+              f"{[round(v, 1) for v in held]} MiB; on {card}", flush=True)
+        del res, one, det
+
+    def mesh_batch_phase():
+        """batch256x4 with its eight volumes over a 'b' mesh axis of SHARDS
+        entries on one card: the unsharded run's keypoints, descriptors,
+        matches, inliers and affines; JAX's inliers on JAX's hypotheses."""
+        fixed_b, moving_b, As, g = st_["batch"]
+        P = len(As)
+        p = st.DetectorParams()
+        mesh = make_mesh({"b": SHARDS}, [dev] * SHARDS)
+        ref = st.register_batch(fixed_b, moving_b, num_iter=500,
+                                det=st.SIFT3D(p, device="cuda"))
+        reset_counters()
+        got = st.register_batch(fixed_b, moving_b, num_iter=500, mesh=mesh)
+        read_counters(p, "batch256x4 register_batch over a b mesh")
+        for r, m in zip(ref, got):
+            assert r.num_matches == m.num_matches
+            assert r.num_inliers == m.num_inliers
+            assert np.array_equal(r.affine, m.affine)
+            assert np.array_equal(r.inlier_mask, m.inlier_mask)
+        det = MeshBatchSIFT3D(p, mesh)
+        vols_b = torch.cat([fixed_b, moving_b])
+        kps = det.detect_keypoints_batch(vols_b)
+        dss = det.extract_descriptors_batch(kps)
+        for a, b_ in zip(kps, st_["batch_kps"]):
+            for f in ("coords", "octave", "level", "sd", "strength", "R"):
+                assert np.array_equal(getattr(a, f), getattr(b_, f)), f
+        jax_idx = {int(g[f"matches{b}"]): g[f"idx{b}"].astype(np.int64)
+                   for b in range(P)}
+        fed = registration._register_pairs(
+            dss[P:], kps[P:], dss[:P], kps[:P], 0.8, 5.0, 500, 0, dev,
+            sample=lambda gen, num_iter, m: torch.from_numpy(jax_idx[m]))
+        for b, f in enumerate(fed):
+            assert f.num_matches == int(g[f"matches{b}"])
+            assert f.num_inliers == int(g[f"inliers{b}"])
+            assert corner_error(f.affine, g[f"affine{b}"], int(g["size"])) \
+                <= 0.25
+        walls = {}
+        for name, kw in (("unsharded", dict(det=st.SIFT3D(p, device="cuda"))),
+                         ("mesh", dict(mesh=mesh))):
+            w = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st.register_batch(fixed_b, moving_b, num_iter=500, **kw)
+                torch.cuda.synchronize()
+                w.append((time.perf_counter() - t0) * 1e3)
+            walls[name] = statistics.median(w)
+        print(f"       batch256x4 over a b mesh of {SHARDS} on one card: "
+              f"matches, inliers and affines equal to the unsharded run; "
+              f"on JAX's hypotheses JAX's inliers "
+              f"{[f.num_inliers for f in fed]}; median wall unsharded "
+              f"{walls['unsharded']:.2f} ms ({P / walls['unsharded'] * 1e3:.3f}"
+              f" pairs/s), mesh {walls['mesh']:.2f} ms "
+              f"({P / walls['mesh'] * 1e3:.3f} pairs/s) on {card}",
               flush=True)
 
     def pair_phase():
@@ -1100,9 +1533,18 @@ def main() -> int:
     s.phase("descriptor kernel vs plain (rel-L2 1e-5)", desc_phase)
     s.phase("descriptor kernel at fractional centers vs plain "
             "(rel-L2 1e-5)", desc_frac_phase)
+    s.phase(f"the four kernels on {SHARDS} haloed z-slabs of octave 0 vs one "
+            f"whole-volume launch (bit-equal)", slab_phase)
     for cell in CELLS:
         s.phase(f"main path: detect + describe, {cell}, vs JAX golden",
                 lambda cell=cell: main_path(cell))
+    for cell in SHARDED_CELLS:
+        s.phase(f"ShardedSIFT3D on {SHARDS} shards, {cell}, vs JAX golden "
+                f"and the single-device port (bit-equal)",
+                lambda cell=cell: sharded_path(cell))
+    s.phase(f"ShardedSIFT3D on {SHARDS} shards, 512^3 sparse, vs the "
+            f"single-device port (bit-equal)", sharded512_phase)
+    torch.cuda.empty_cache()
     s.phase("registration pair, 192^3, warped on the card vs JAX golden",
             pair_phase)
     for cfg in REG_CONFIGS:
@@ -1118,6 +1560,8 @@ def main() -> int:
             batch_pairs_phase)
     s.phase("batch256x4: register_batch of four 256^3 pairs vs per-volume "
             "runs and JAX golden", batch_register_phase)
+    s.phase(f"batch256x4 over a b mesh of {SHARDS} on one card vs the "
+            f"unsharded run and JAX golden", mesh_batch_phase)
     s.phase("batch loader on the card: NIfTI -> detect_keypoints_batch",
             loader_phase)
     print(f"all phases {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -7,7 +7,10 @@ kernels, ``device="cpu"`` their plain PyTorch versions; ``register`` /
 ``register_sift3d``, ``register_batch``, ``warp_volume`` and
 ``io.BatchVolumeLoader`` take the same ``device=``. A batch of volumes
 runs through ``SIFT3D.detect_keypoints_batch`` and
-``extract_descriptors_batch``.
+``extract_descriptors_batch``, over the devices of a mesh axis
+(``parallel.make_mesh``) through ``parallel.MeshBatchSIFT3D`` or
+``register_batch(mesh=...)``; one volume sharded along z through
+``parallel.ShardedSIFT3D``.
 Importing this package never imports jax.
 """
 

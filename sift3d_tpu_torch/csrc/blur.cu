@@ -38,6 +38,16 @@
 //
 // Offsets: a 64-bit base per volume and tile (or row), 32-bit arithmetic
 // inside it.
+//
+// z-slab contract of the y/z pass (a z-sharded pyramid,
+// sift3d_tpu/parallel/spatial.py:113-157): its input may be a slab of nzs
+// rows that holds the nz output rows from slab row zoff, with halo rows of
+// the neighbouring shards on both sides (zeros beyond the volume). The
+// caller hands the z weights of the output rows' global indices, so the
+// boundary rule applies only at the volume's own ends; the pass writes,
+// and counts in max |DoG|, only the output rows. A halo at least the
+// band's reach gives every output row the whole-volume launch's terms in
+// its order: the same bits. The whole volume is nzs = nz, zoff = 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -179,7 +189,8 @@ __global__ void __launch_bounds__(kXThreads)
 }
 
 // A ty x tz tile (ty a multiple of kBlock, at most 32; tz 32 or 64) of xs
-// consecutive x-planes of one volume (blockIdx.z = b * ceil(nx / xs) + the
+// consecutive x-planes of one volume (src rows nzs deep, output row z at
+// src row zoff + z) (blockIdx.z = b * ceil(nx / xs) + the
 // planes' group; each tensor's volume b at its base + b * its batch
 // stride, dmax[b * dmax_bs] the volume's max): the y pass and the z pass of
 // the x output `src`, the level written to `cur`; with `prev`, also
@@ -206,7 +217,7 @@ __global__ void __launch_bounds__(kYZThreads) blur_yz_dog_kernel(
     unsigned int* __restrict__ dmax, const float* __restrict__ wy, int by,
     int loy, const float* __restrict__ wz, int bz, int loz, int64_t src_bs,
     int64_t prev_bs, int64_t cur_bs, int64_t dog_bs, int64_t dmax_bs, int nx,
-    int ny, int nz, int ty, int tz, int xs, bool vec) {
+    int ny, int nz, int nzs, int zoff, int ty, int tz, int xs, bool vec) {
   extern __shared__ float4 smem4[];
   const int groups = (nx + xs - 1) / xs;
   const int vb = blockIdx.z / groups, xg = blockIdx.z - vb * groups;
@@ -223,31 +234,32 @@ __global__ void __launch_bounds__(kYZThreads) blur_yz_dog_kernel(
   float4* wy4 = smem4;
   float4* wz4 = wy4 + (ty / kBlock) * jy;
   float* o = reinterpret_cast<float*>(wz4 + (tz / kBlock) * jz);
-  // a's rows start at z0 + loz - sh, a multiple of 4 (z0 is), so that
-  // 16-byte copies land aligned; its row stride cw is a multiple of 4.
-  const int sh = loz & 3, cw = (ca + sh + 3) & ~3;
+  // a's rows start at src row z0 + zoff + loz - sh, a multiple of 4 (z0
+  // is), so that 16-byte copies land aligned; its row stride cw is a
+  // multiple of 4.
+  const int sh = (zoff + loz) & 3, cw = (ca + sh + 3) & ~3;
   float* bt = o + ty * so;
   float* a = bt + ((ca * sb + 3) & ~3);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int z0 = blockIdx.x * tz, y0 = blockIdx.y * ty;
   const int x0 = xg * xs, x1 = min(x0 + xs, nx);
-  const int plane = ny * nz;
+  const int plane = ny * nz, plane_s = ny * nzs;
   const int nry = min(ty, ny - y0), nrz = min(tz, nz - z0);
   const int tz_shift = tz == 64 ? 6 : 5;
 
-  // With `vec` (nz a multiple of 4, src 16-byte aligned) by 16-byte
-  // copies, which lie wholly inside or outside the volume, else word by
+  // With `vec` (nzs a multiple of 4, src 16-byte aligned) by 16-byte
+  // copies, which lie wholly inside or outside the slab, else word by
   // word.
   const int step = vec ? 4 : 1;
   auto stage = [&](int x) {
-    const float* in = src + (int64_t)x * plane;
+    const float* in = src + (int64_t)x * plane_s;
     for (int r = warp; r < ra; r += kWarps) {
       const int y = y0 + loy + r;
       const bool row = y >= 0 && y < ny;
       for (int c = step * lane; c < cw; c += step * 32) {
-        const int z = z0 + loz - sh + c;
-        const bool ok = row && z >= 0 && z < nz;
-        const float* g = in + (ok ? y * nz + z : 0);
+        const int z = z0 + zoff + loz - sh + c;
+        const bool ok = row && z >= 0 && z < nzs;
+        const float* g = in + (ok ? y * nzs + z : 0);
         if (vec) {
           copy16(a + r * cw + c, g, ok);
         } else {
@@ -394,6 +406,8 @@ extern "C" int s3d_blur_x(const float* src, float* dst, const float* wx,
 }
 
 // prev, dog and dmax are null for the first level of octave 0 (no DoG).
+// src has nzs rows, output row z at src row zoff + z; wz holds the nz
+// output rows' weights.
 extern "C" int s3d_blur_yz_dog(const float* src, const float* prev,
                                float* cur, float* dog, float* dmax,
                                const float* wy, int by, int loy,
@@ -401,8 +415,8 @@ extern "C" int s3d_blur_yz_dog(const float* src, const float* prev,
                                int64_t src_bs, int64_t prev_bs,
                                int64_t cur_bs, int64_t dog_bs,
                                int64_t dmax_bs, int nx, int ny, int nz,
-                               int ty, int tz, int xs, int smem_bytes,
-                               void* stream) {
+                               int nzs, int zoff, int ty, int tz, int xs,
+                               int smem_bytes, void* stream) {
   const int ca = tz + bz - 1;
   const int need = (int)sizeof(float) *
                    ((by + kBlock - 1) * ty + (bz + kBlock - 1) * tz +
@@ -411,7 +425,8 @@ extern "C" int s3d_blur_yz_dog(const float* src, const float* prev,
   if (ty < 1 || ty > kBlock * kWarps || ty % kBlock != 0 ||
       (tz != 32 && tz != 64) || ty * tz > kOut * kYZThreads || xs < 1 ||
       by < 1 || bz < 1 || smem_bytes < need || nb < 1 ||
-      (int64_t)nb * ((nx + xs - 1) / xs) > 65535) {
+      (int64_t)nb * ((nx + xs - 1) / xs) > 65535 || zoff < 0 ||
+      zoff + nz > nzs) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = allow_smem(blur_yz_dog_kernel, smem_bytes);
@@ -422,8 +437,8 @@ extern "C" int s3d_blur_yz_dog(const float* src, const float* prev,
                        static_cast<cudaStream_t>(stream)>>>(
       src, prev, cur, dog, reinterpret_cast<unsigned int*>(dmax), wy, by,
       loy, wz, bz, loz, src_bs, prev_bs, cur_bs, dog_bs, dmax_bs, nx, ny, nz,
-      ty, tz, xs,
-      nz % 4 == 0 && src_bs % 4 == 0 &&
+      nzs, zoff, ty, tz, xs,
+      nzs % 4 == 0 && src_bs % 4 == 0 &&
           reinterpret_cast<uintptr_t>(src) % 16 == 0);
   return static_cast<int>(cudaGetLastError());
 }

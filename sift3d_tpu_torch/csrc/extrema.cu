@@ -21,6 +21,15 @@
 // ring of haloed planes that did the same here took twice as long,
 // PERF.md.) A warp gathers its candidates with __ballot_sync + __popc and
 // reserves their slots with one atomicAdd.
+//
+// z-slab contract (sift3d_tpu/parallel/spatial.py:160-248, which runs the
+// TPU kernel on a shard's rows with a one-voxel z halo): the stack may be
+// rows of a volume gnz deep, slab row 0 at global z z_origin. Only slab
+// rows [zmin, zmax] are tested (the wrapper makes them the shard's own
+// rows, inside [1, nz - 2] of the slab and [1, gnz - 2] globally), and the
+// keys carry the global z and depth: (((b * nl + l) * gnz + z_origin + z)
+// * ny + y) * nx + x. The whole volume is z_origin 0, gnz = nz, rows
+// [1, nz - 2].
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,7 +54,7 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ thr, int64_t* __restrict__ keys,
                    unsigned long long* __restrict__ counts,
                    long long capacity, int nl, int nx, int ny, int nz,
-                   int cuboid) {
+                   int zmin, int zmax, int z_origin, int gnz, int cuboid) {
   const int bl = blockIdx.z, x = blockIdx.y;
   const int b = bl / nl, l = bl - b * nl;
   const int lane = threadIdx.x & 31;
@@ -72,7 +81,7 @@ __global__ void __launch_bounds__(kThreads)
       if (p < p1 && x_in && (c[u] > t || c[u] < -t)) {
         y = p / nz;
         z = p - y * nz;
-        if (y >= 1 && y <= ny - 2 && z >= 1 && z <= nz - 2) {
+        if (y >= 1 && y <= ny - 2 && z >= zmin && z <= zmax) {
           const float* q = cur + p;
           bool is_max = true, is_min = true;
           if (cuboid) {
@@ -113,7 +122,8 @@ __global__ void __launch_bounds__(kThreads)
           const long long slot =
               (long long)first + __popc(ballot & ((1u << lane) - 1u));
           if (slot < capacity) {
-            keys[slot] = (((int64_t)bl * nz + z) * ny + y) * nx + x;
+            keys[slot] =
+                (((int64_t)bl * gnz + z_origin + z) * ny + y) * nx + x;
           }
         }
       }
@@ -128,15 +138,17 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int s3d_extrema_candidates(const float* dog, const float* thr,
                                       int64_t* keys, int64_t* counts,
                                       long long capacity, int nb, int nl,
-                                      int nx, int ny, int nz, int cuboid,
-                                      void* stream) {
+                                      int nx, int ny, int nz, int zmin,
+                                      int zmax, int z_origin, int gnz,
+                                      int cuboid, void* stream) {
   if (nb < 1 || nl < 1 || nx < 1 || ny < 1 || nz < 1 || nx > 65535 ||
-      (int64_t)nb * nl > 65535) {
+      (int64_t)nb * nl > 65535 || zmin < 1 || zmax > nz - 2 ||
+      z_origin + zmin < 1 || z_origin + zmax > gnz - 2) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((ny * nz + kChunk - 1) / kChunk, nx, nb * nl);
   extrema_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       dog, thr, keys, reinterpret_cast<unsigned long long*>(counts), capacity,
-      nl, nx, ny, nz, cuboid);
+      nl, nx, ny, nz, zmin, zmax, z_origin, gnz, cuboid);
   return static_cast<int>(cudaGetLastError());
 }

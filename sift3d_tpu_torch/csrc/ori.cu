@@ -28,6 +28,16 @@
 // the moment sums run in another order than the plain version. The TPU
 // kernel's integer anchors placed its window DMA; walking the box in place
 // needs none.
+//
+// z-slab contract (the TPU kernel's z_origin / global_nz,
+// sift3d_tpu/ops/ori_kernel.py:178-191): the levels may be rows of a
+// volume gnz deep, slab row 0 at global z z_origin (a shard's rows with
+// their halo). Centers stay global, the loop bounds clip at [1, gnz - 2],
+// and global row z is read from slab row z - z_origin. The sums and their
+// order do not depend on the slab, so a slab launch gives the whole-volume
+// launch's bits. A keypoint whose box, with its gradient border, leaves
+// the slab reads nothing: its A, vd and R read NaN and none of its four
+// predicates is set (neither accepted nor rejected), with no host sync.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -173,7 +183,7 @@ __device__ void orient_one(const float A[9], const float vd[3],
 }
 
 struct Window {
-  int nx, ny, nz;
+  int nx, ny, nzs, z_origin, gnz;
   float u[3], inv[3];
   float sig_fctr, rad_fctr;
 };
@@ -189,7 +199,7 @@ __global__ void ori_kernel(const float* __restrict__ levels,
   const int k = blockIdx.x;
   const float c[3] = {centers[3 * k], centers[3 * k + 1], centers[3 * k + 2]};
   const float sd = sd_in[k];
-  const int n[3] = {win.nx, win.ny, win.nz};
+  const int n[3] = {win.nx, win.ny, win.gnz};
   const float sigma = __fmul_rn(sd, win.sig_fctr);
   const float rad = __fmul_rn(sigma, win.rad_fctr);
   int lo[3], ext[3];
@@ -202,10 +212,18 @@ __global__ void ori_kernel(const float* __restrict__ levels,
   }
   const float rad2 = __fmul_rn(rad, rad);
   const float sig2 = __fmul_rn(sigma, sigma);
-  const int64_t sx = (int64_t)win.ny * win.nz, sy = win.nz;
+  const int64_t sx = (int64_t)win.ny * win.nzs, sy = win.nzs;
   const float* level = levels + lvl[k] * win.nx * sx;
   // A box holds at most (n-2)^3 < 2^31 voxels: 32-bit index arithmetic.
   const int total = ext[0] * ext[1] * ext[2];
+  if (total > 0 && (lo[2] - 1 < win.z_origin ||
+                    lo[2] + ext[2] > win.z_origin + win.nzs - 1)) {
+    const float nan = __int_as_float(0x7fc00000);
+    if (threadIdx.x < 12) moments[12 * (int64_t)k + threadIdx.x] = nan;
+    if (threadIdx.x < 9) R_out[9 * (int64_t)k + threadIdx.x] = nan;
+    if (threadIdx.x < 4) flags_out[4 * (int64_t)k + threadIdx.x] = false;
+    return;
+  }
 
   float acc[kSums];
   for (int s = 0; s < kSums; ++s) acc[s] = 0.0f;
@@ -221,7 +239,7 @@ __global__ void ori_kernel(const float* __restrict__ levels,
                                __fmul_rn(dz, dz));
     if (!(sq <= rad2)) continue;
     const float w = expf(__fdiv_rn(__fmul_rn(-0.5f, sq), sig2));
-    const float* p = level + x * sx + y * sy + z;
+    const float* p = level + x * sx + y * sy + (z - win.z_origin);
     const float gx =
         __fmul_rn(__fmul_rn(0.5f, __fsub_rn(p[sx], p[-sx])), win.inv[0]);
     const float gy =
@@ -294,12 +312,13 @@ __global__ void eigh_kernel(const float* __restrict__ A, float* __restrict__ w,
 extern "C" int s3d_orient(const float* levels, const int64_t* lvl,
                           const float* centers, const float* sd,
                           float* moments, float* R, bool* flags, int K,
-                          int nx, int ny, int nz, float ux, float uy, float uz,
+                          int nx, int ny, int nzs, int z_origin, int gnz,
+                          float ux, float uy, float uz,
                           float ix, float iy, float iz, float sig_fctr,
                           float rad_fctr, float grad_thresh, float eig_ratio,
                           float corner_thresh, void* stream) {
-  const Window win{nx, ny, nz, {ux, uy, uz}, {ix, iy, iz}, sig_fctr,
-                   rad_fctr};
+  const Window win{nx, ny, nzs, z_origin, gnz, {ux, uy, uz}, {ix, iy, iz},
+                   sig_fctr, rad_fctr};
   const Thresholds th{grad_thresh, eig_ratio, corner_thresh};
   ori_kernel<<<K, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       levels, lvl, centers, sd, moments, R, flags, win, th);

@@ -28,11 +28,26 @@ from .ops.desc_kernel import desc_fused
 from .params import DESC_NUMEL, DetectorParams
 
 
+def _row_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum of each row of a [K, 768] as a fixed tree of elementwise adds
+    (halves down to 3 columns, then left to right): the same bits for a
+    row whatever K, the device or the launch configuration, so that a
+    keypoint's descriptor does not depend on the batch or shard it is
+    extracted in (torch's reductions pick their order by shape)."""
+    while a.shape[-1] % 2 == 0:
+        h = a.shape[-1] // 2
+        a = a[..., :h] + a[..., h:]
+    out = a[..., 0]
+    for j in range(1, a.shape[-1]):
+        out = out + a[..., j]
+    return out[..., None]
+
+
 def normalize(hist: torch.Tensor, params: DetectorParams) -> torch.Tensor:
     """L2-normalize, truncate, renormalize each row of hist [K, D]
     (sift.c:1402-1429, 1508-1526)."""
     def norm1(h):
-        nrm = torch.sqrt((h * h).sum(dim=-1, keepdim=True)) \
+        nrm = torch.sqrt(_row_sum(h * h)) \
             + float(np.float32(2.220446049250313e-16))
         return h * (1.0 / nrm)
     h = norm1(hist)
@@ -40,22 +55,24 @@ def normalize(hist: torch.Tensor, params: DetectorParams) -> torch.Tensor:
     return norm1(h)
 
 
-def extract_descriptors(levels: torch.Tensor, lvl: torch.Tensor,
-                        centers: torch.Tensor, R: torch.Tensor,
-                        sd: torch.Tensor, octave: int, units,
-                        params: DetectorParams, sd_max: float,
-                        fractional: bool = False):
-    """Descriptors of K keypoints of one octave.
+def octave_histograms(levels: torch.Tensor, lvl: torch.Tensor,
+                      centers: torch.Tensor, R: torch.Tensor,
+                      sd: torch.Tensor, octave: int, units,
+                      params: DetectorParams, sd_max: float,
+                      fractional: bool = False, z_origin: int = 0,
+                      global_nz: int | None = None):
+    """Descriptor histograms of K keypoints of one octave, before
+    normalize (which the callers run once for several octaves or shards:
+    its row sums are per row).
 
     levels f32[nl, nx, ny, nz]; lvl i64[K] level index; centers f32[K, 3]
     (integer-valued, or fractional after subvoxel refinement); R f32[K, 3,
-    3]; sd f32[K], each <= sd_max.
-    Returns (desc f32[K, 768], xyz f32[K, 3] base-octave coordinates)."""
+    3]; sd f32[K], each <= sd_max. levels may be a z-slab whose row 0 is
+    global z z_origin of a volume global_nz deep.
+    Returns (hist f32[K, 768], xyz f32[K, 3] base-octave coordinates)."""
     K = centers.shape[0]
     hist = desc_fused(levels, lvl, centers, R, sd, units, params, sd_max,
-                      fractional)
+                      fractional, z_origin, global_nz)
     # [(cz, cy), (cx, v)] -> flat hist index x + 4y + 16z, vertex minor
     # (DESC_MAT_GET_COL, sift.c:136-137): the row-major order already.
-    desc = normalize(hist.reshape(K, DESC_NUMEL), params)
-    xyz = centers * float(2.0 ** octave)
-    return desc, xyz
+    return hist.reshape(K, DESC_NUMEL), centers * float(2.0 ** octave)

@@ -37,27 +37,37 @@ class OctaveCandidates(NamedTuple):
 
 
 def detect_extrema_octave(dog_oct: torch.Tensor, dogmax: torch.Tensor,
-                          params: DetectorParams) -> OctaveCandidates:
+                          params: DetectorParams, z_origin: int = 0,
+                          global_nz: int | None = None,
+                          z_rows=None) -> OctaveCandidates:
     """Extrema of every keypoint level of one octave.
 
     dog_oct f32[num_dog_levels, nx, ny, nz]; dogmax f32[num_dog_levels]
     the per-level max |DoG| (from the pyramid builder). A batch, dog_oct
     f32[B, num_dog_levels, nx, ny, nz] and dogmax f32[B, num_dog_levels],
-    gives every volume's candidates and each one's volume in `batch`."""
+    gives every volume's candidates and each one's volume in `batch`.
+    A z-slab of a volume global_nz deep (a shard's rows z_rows = [lo, hi)
+    of the slab, with their halo; slab row 0 at global z z_origin; dogmax
+    the whole volume's) gives the candidates of those rows, in global
+    coordinates and in the volume's order."""
     *lead, Ld, nx, ny, nz = dog_oct.shape
+    gnz = nz if global_nz is None else int(global_nz)
     thr = torch.tensor(params.peak_thresh, dtype=torch.float32,
                        device=dog_oct.device) * dogmax[..., 1:Ld - 1]
     keys, counts = extrema_candidates(dog_oct, thr.contiguous(),
-                                      params.cuboid_extrema)
+                                      params.cuboid_extrema,
+                                      z_origin=z_origin, global_nz=global_nz,
+                                      z_rows=z_rows)
     keys = torch.sort(keys).values
     xx, r = keys % nx, keys // nx
     yy, r = r % ny, r // ny
-    zz, lvl = r % nz, r // nz
+    zz, lvl = r % gnz, r // gnz
     coords = torch.stack([xx, yy, zz], dim=-1)
+    zs = zz - z_origin if z_origin else zz     # the slab row
     if not lead:
-        strength = dog_oct[1 + lvl, xx, yy, zz].abs()
+        strength = dog_oct[1 + lvl, xx, yy, zs].abs()
         return OctaveCandidates(coords, lvl, strength, counts)
     nl = Ld - 2
     b, lvl = lvl // nl, lvl % nl
-    strength = dog_oct[b, 1 + lvl, xx, yy, zz].abs()
+    strength = dog_oct[b, 1 + lvl, xx, yy, zs].abs()
     return OctaveCandidates(coords, lvl, strength, counts, b)

@@ -39,14 +39,15 @@ _SIGNATURES = {
                    _P),
     "s3d_blur_yz_dog": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
                         _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I,
-                        _I, _I, _P),
+                        _I, _I, _I, _I, _P),
     "s3d_extrema_candidates": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
-                               _P),
-    "s3d_orient": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _P),
+    "s3d_orient": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
     "s3d_eigh3x3": (_P, _P, _P, _I64, _P),
-    "s3d_desc_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    "s3d_desc_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                       _F, _P),
 }
 
 _lib = None

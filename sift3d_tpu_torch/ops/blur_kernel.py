@@ -45,6 +45,14 @@ per level, where one kernel per level could move 3 (read the previous
 level, write the level and the DoG), but its x halo does not fit in shared
 memory at the widest bands (34 taps at 0.5 mm voxels).
 
+A z-sharded pyramid (parallel/spatial.py) runs the x pass on each
+shard's own rows and the y/z pass on the x output extended by halo rows
+of the neighbouring shards: ``blur_yz_dog(..., z_off=h)`` reads the slab,
+applies the z weights of the output rows' global indices (so the
+boundary rule acts only at the volume's ends) and writes, and counts in
+max |DoG|, only the shard's own rows; with a halo at least the band's
+reach that is the whole-volume launch's result, bit for bit.
+
 On a CPU tensor every wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises.
 """
@@ -70,17 +78,20 @@ SMS = 132                # the H100's streaming multiprocessors
 
 
 def axis_pass_plain(vol: torch.Tensor, wd: torch.Tensor, lo: int,
-                    axis: int) -> torch.Tensor:
+                    axis: int, off: int = 0) -> torch.Tensor:
     """Plain version of one axis pass: shifted multiply-adds, one band
     term at a time in ascending k, multiply then add (as
-    sift3d_tpu/pyramid.py:182 _diag_pass)."""
-    n = vol.shape[axis]
+    sift3d_tpu/pyramid.py:182 _diag_pass). Output i = sum_k wd[i, k] *
+    vol[i + off + lo + k] for the wd.shape[0] rows of wd, zero outside vol
+    (off > 0: a slab whose output rows start at row off)."""
+    N, n = vol.shape[axis], wd.shape[0]
     band = wd.shape[1]
-    pad_lo, pad_hi = max(0, -lo), max(0, lo + band - 1)
+    pad_lo = max(0, -(off + lo))
+    pad_hi = max(0, n + off + lo + band - 1 - N)
     v = F.pad(vol.movedim(axis, -1), (pad_lo, pad_hi))
     out = None
     for k in range(band):
-        s = pad_lo + lo + k
+        s = pad_lo + off + lo + k
         term = wd[:, k] * v[..., s:s + n]
         out = term if out is None else out + term
     return out.movedim(-1, axis).contiguous()
@@ -206,12 +217,13 @@ def blur_x(src: torch.Tensor, wx: torch.Tensor, lo: int,
 
 
 def blur_yz_dog_plain(src: torch.Tensor, wy: torch.Tensor, loy: int,
-                      wz: torch.Tensor, loz: int, prev=None):
+                      wz: torch.Tensor, loz: int, prev=None, z_off: int = 0):
     """(cur, dog, max |dog| per volume): the y and z passes of src, then
-    the DoG against prev; dog and max are None without prev."""
+    the DoG against prev; dog and max are None without prev. src may be a
+    slab whose wz.shape[0] output rows start at row z_off."""
     a = src.ndim - 3
     cur = axis_pass_plain(axis_pass_plain(src, wy, loy, a + 1), wz, loz,
-                          a + 2)
+                          a + 2, z_off)
     if prev is None:
         return cur, None, None
     return (cur,) + dog_max_plain(prev, cur)
@@ -221,23 +233,30 @@ def blur_yz_dog(src: torch.Tensor, wy: torch.Tensor, loy: int,
                 wz: torch.Tensor, loz: int, cur: torch.Tensor,
                 prev: torch.Tensor | None = None,
                 dog: torch.Tensor | None = None,
-                dmax: torch.Tensor | None = None) -> torch.Tensor:
+                dmax: torch.Tensor | None = None,
+                z_off: int = 0) -> torch.Tensor:
     """cur = the y then z passes of src (the x output), f32[nx, ny, nz] or
     a batch f32[B, nx, ny, nz] (each volume contiguous), band weights
     wy f32[ny, By], wz f32[nz, Bz]. With prev: dog = prev - cur and dmax
     (f32[1] for one volume, f32[B] of any stride for a batch, zero on
-    entry) = max |dog| per volume."""
+    entry) = max |dog| per volume. A z-slab src f32[..., nx, ny, nzs]
+    holds cur's nz rows from row z_off and their halo; wz then holds the
+    weights of cur's rows (their global indices)."""
     global blur_yz_dog_launches
     if src.device.type == "cpu":
-        c, d, m = blur_yz_dog_plain(src, wy, loy, wz, loz, prev)
+        c, d, m = blur_yz_dog_plain(src, wy, loy, wz, loz, prev, z_off)
         cur.copy_(c)
         if prev is not None:
             dog.copy_(d)
             dmax.copy_(m.reshape(dmax.shape))
         return cur
-    dims = tuple(src.shape[-3:])
+    dims = tuple(cur.shape[-3:])
     nx, ny, nz = dims
-    nb, src_bs = _batch("blur_yz_dog src", src, dims)
+    nzs = src.shape[-1]
+    if z_off < 0 or z_off + nz > nzs:
+        raise ValueError(f"blur_yz_dog: rows [{z_off}, {z_off + nz}) "
+                         f"outside a slab of {nzs}")
+    nb, src_bs = _batch("blur_yz_dog src", src, (nx, ny, nzs))
     _, cur_bs = _batch("blur_yz_dog cur", cur, dims, nb)
     _build.check_cuda("blur_yz_dog wy", wy, torch.float32, (ny, wy.shape[1]))
     _build.check_cuda("blur_yz_dog wz", wz, torch.float32, (nz, wz.shape[1]))
@@ -252,6 +271,7 @@ def blur_yz_dog(src: torch.Tensor, wy: torch.Tensor, loy: int,
             raise ValueError(f"blur_yz_dog dmax: expected CUDA f32[{nb}]")
         dmax_bs = dmax.stride(0)
     _check_dims("blur_yz_dog", dims)
+    _check_dims("blur_yz_dog src", (nx, ny, nzs))
     ty, tz, xs, smem = yz_tile(nx, ny, nz, wy.shape[1], wz.shape[1], nb)
     if nb * -(-nx // xs) > 65535:
         raise ValueError(f"blur_yz_dog: batch of {nb} too large for the grid")
@@ -259,7 +279,7 @@ def blur_yz_dog(src: torch.Tensor, wy: torch.Tensor, loy: int,
     _build.call("s3d_blur_yz_dog", src.data_ptr(), ptr(prev), cur.data_ptr(),
                 ptr(dog), ptr(dmax), wy.data_ptr(), wy.shape[1], loy,
                 wz.data_ptr(), wz.shape[1], loz, nb, src_bs, prev_bs, cur_bs,
-                dog_bs, dmax_bs, nx, ny, nz, ty, tz, xs, smem,
+                dog_bs, dmax_bs, nx, ny, nz, nzs, int(z_off), ty, tz, xs, smem,
                 _build.stream_ptr(src))
     blur_yz_dog_launches += 1
     return cur

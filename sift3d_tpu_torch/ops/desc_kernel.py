@@ -21,15 +21,26 @@ gradient, the masks, the weight, grot and vb of each voxel in registers,
 with the operations of ``prep_windows`` in its order, then runs the
 20-face test and adds 24 contributions into a per-warp histogram in shared
 memory; the block merges its histograms and adds them into the keypoint's
-output with global atomics. grot and vb never reach device memory. The
+accumulator with global atomics, and a second kernel converts the
+accumulators to f32. The sums are exact: each contribution is rounded once
+to a fixed-point int64 (a per-keypoint power of two, from the size of its
+box) and added as an integer, so the result does not depend on the order
+of the adds, and a keypoint gives the same bits on every call, whatever
+the launch's split, batch or shard. grot and vb never reach device memory. The
 antipodal face pairing, the 8-keypoint packing, the affine-vbins layout
 and the skip-flag words of the TPU kernel served its MXU and scalar core
 and are not carried over.
 
 Bound on the H100: operations — some 400 f32 operations a voxel of the
-box, most of them the face test — and the shared-memory atomics. The sums
-run in an order that changes from run to run (tolerance: rel-L2 1e-5 per
-descriptor).
+box, most of them the face test — and the shared-memory atomics. The sums run
+in another order than the plain version's f32 sums (tolerance: rel-L2 1e-5
+per descriptor).
+
+The levels may be a z-slab of a deeper volume (a shard's rows and their
+halo): ``z_origin`` is the global z of slab row 0 and ``global_nz`` the
+volume's depth; centers stay global and the windows clip at the global
+depth (the TPU kernel's ``z_view``, sift3d_tpu/windows.py:27-64). The
+slab must hold every window's rows; the defaults are the whole volume.
 
 The plain version is ``prep_windows`` (gathered windows, masks and
 rotation as batched tensor math, as the TPU package kept it in XLA) and
@@ -158,23 +169,30 @@ def window_extents(sd_max: float, units, dims, params, margin: int = 0):
                  for a in range(3))
 
 
+def _dims(levels: torch.Tensor, global_nz):
+    """The volume's (nx, ny, nz) of a level stack or z-slab."""
+    nx, ny, nz = levels.shape[1:]
+    return (nx, ny, nz if global_nz is None else int(global_nz))
+
+
 def prep_windows(levels: torch.Tensor, lvl: torch.Tensor,
                  coords: torch.Tensor, centers: torch.Tensor,
                  R: torch.Tensor, sd: torch.Tensor, units, extents,
-                 params):
+                 params, z_view=None):
     """(grot, vbins) f32[K, 3, N] for desc_hist_plain, N the window
-    interior's voxel count; masked voxels get a zero gradient."""
+    interior's voxel count; masked voxels get a zero gradient. z_view =
+    (z_origin, global_nz) for a z-slab."""
     warm_cpu_math(levels.device)
     nb = NB
     K = coords.shape[0]
     dev = levels.device
-    n = levels.shape[1:]
+    n = _dims(levels, None if z_view is None else z_view[1])
     sigma = sd * float(np.float32(params.desc_sig_fctr))
     win_radius = sigma * float(np.float32(params.desc_rad_fctr))
     half_width = true_div(win_radius, np.float32(_SQRT2))
     bin_fctr = 1.0 / (2.0 * half_width / float(nb))
 
-    win, start = gather_windows(levels, lvl, coords, extents)
+    win, start = gather_windows(levels, lvl, coords, extents, z_view)
     u = [float(np.float32(x)) for x in units]
     inv = [float(np.float32(1.0) / np.float32(x)) for x in units]
     g3 = (0.5 * (win[:, 2:, 1:-1, 1:-1] - win[:, :-2, 1:-1, 1:-1]) * inv[0],
@@ -221,12 +239,14 @@ def prep_windows(levels: torch.Tensor, lvl: torch.Tensor,
 def desc_fused_plain(levels: torch.Tensor, lvl: torch.Tensor,
                      centers: torch.Tensor, R: torch.Tensor,
                      sd: torch.Tensor, units, params, sd_max: float,
-                     fractional: bool = False) -> torch.Tensor:
+                     fractional: bool = False, z_origin: int = 0,
+                     global_nz: int | None = None) -> torch.Tensor:
     """Plain version: prep_windows then desc_hist_plain, in batches of
     keypoints whose windows hold about _PREP_VOXELS voxels. Each window is
     anchored at rint(center) (sift3d_tpu/pipeline.py:1719)."""
     K = centers.shape[0]
-    extents = window_extents(sd_max, units, levels.shape[1:], params,
+    dims = _dims(levels, global_nz)
+    extents = window_extents(sd_max, units, dims, params,
                              4 if fractional else 0)
     coords = centers.round().long()
     nvox = int(np.prod([e - 2 for e in extents]))
@@ -235,40 +255,50 @@ def desc_fused_plain(levels: torch.Tensor, lvl: torch.Tensor,
     for s in range(0, K, step):
         sl = slice(s, s + step)
         grot, vbins = prep_windows(levels, lvl[sl], coords[sl], centers[sl],
-                                   R[sl], sd[sl], units, extents, params)
+                                   R[sl], sd[sl], units, extents, params,
+                                   (z_origin, dims[2]))
         hists.append(desc_hist_plain(grot, vbins, params.bary_eps))
     return torch.cat(hists)
 
 
 def desc_fused(levels: torch.Tensor, lvl: torch.Tensor,
                centers: torch.Tensor, R: torch.Tensor, sd: torch.Tensor,
-               units, params, sd_max: float,
-               fractional: bool = False) -> torch.Tensor:
+               units, params, sd_max: float, fractional: bool = False,
+               z_origin: int = 0,
+               global_nz: int | None = None) -> torch.Tensor:
     """Histograms f32[K, 16, 48] of K keypoints of one octave.
 
     levels f32[L, nx, ny, nz]; lvl i64[K] level per keypoint; centers
     f32[K, 3], integer-valued or (fractional) subvoxel-refined; R f32[K,
     3, 3]; sd f32[K] absolute scale, all <= sd_max; params a
     DetectorParams. sd_max and fractional size the plain version's
-    windows and the kernel's split of a keypoint's box."""
+    windows and the kernel's split of a keypoint's box. levels may be a
+    z-slab whose row 0 is global z z_origin of a volume global_nz deep.
+    On the card a keypoint whose window leaves the slab reads NaN (the
+    kernel reads nothing outside the slab); the plain version raises
+    ValueError."""
     global launches
     if levels.device.type == "cpu":
         return desc_fused_plain(levels, lvl, centers, R, sd, units, params,
-                                sd_max, fractional)
+                                sd_max, fractional, z_origin, global_nz)
     K = centers.shape[0]
-    _, nx, ny, nz = levels.shape
+    _, nx, ny, nzs = levels.shape
+    dims = _dims(levels, global_nz)
     _build.check_cuda("desc_fused levels", levels, torch.float32)
     _build.check_cuda("desc_fused lvl", lvl, torch.int64, (K,))
     _build.check_cuda("desc_fused centers", centers, torch.float32, (K, 3))
     _build.check_cuda("desc_fused R", R, torch.float32, (K, 3, 3))
     _build.check_cuda("desc_fused sd", sd, torch.float32, (K,))
-    out = torch.zeros((K, NB * NB, NB * ICOS_NVERT), dtype=torch.float32,
+    out = torch.empty((K, NB * NB, NB * ICOS_NVERT), dtype=torch.float32,
                       device=levels.device)
     if K == 0:
         return out
+    acc = torch.zeros((K, NB * NB * NB * ICOS_NVERT), dtype=torch.int64,
+                      device=levels.device)
+    bad = torch.zeros(K, dtype=torch.int32, device=levels.device)
     # The largest loop-bound box, which sizes the split of each keypoint.
     box = int(np.prod([e - 2 for e in window_extents(
-        sd_max, units, levels.shape[1:], params, 4 if fractional else 0)]))
+        sd_max, units, dims, params, 4 if fractional else 0)]))
     splits = max(1, min(-(-_MIN_BLOCKS // K), box // _VOX_PER_BLOCK_MIN))
     geom, face_idx = _consts(levels.device)
     u = [np.float32(x) for x in units]
@@ -277,8 +307,9 @@ def desc_fused(levels: torch.Tensor, lvl: torch.Tensor,
             params.bary_eps]
     _build.call("s3d_desc_fused", levels.data_ptr(), lvl.data_ptr(),
                 centers.data_ptr(), R.data_ptr(), sd.data_ptr(),
-                geom.data_ptr(), face_idx.data_ptr(), out.data_ptr(), K,
-                splits, nx, ny, nz, *(float(np.float32(x)) for x in scal),
+                geom.data_ptr(), face_idx.data_ptr(), acc.data_ptr(),
+                bad.data_ptr(), out.data_ptr(), K, splits, nx, ny, nzs,
+                int(z_origin), dims[2], *(float(np.float32(x)) for x in scal),
                 _build.stream_ptr(levels))
     launches += 1
     return out

@@ -36,6 +36,13 @@ with fractional centers, which lie within a voxel of the anchor, the
 window gets the JAX package's margin of 4 voxels
 (sift3d_tpu/orientation.py:204-210). The kernel needs no anchor.
 
+The levels may be a z-slab of a deeper volume (a shard's rows and their
+halo), as the TPU kernel's ``z_origin``/``global_nz``
+(sift3d_tpu/ops/ori_kernel.py:178-191): slab row 0 sits at global z
+``z_origin``, centers stay global and the loop bounds clip at the global
+depth. The slab must hold every window's rows; the defaults are the whole
+volume.
+
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises.
 """
@@ -67,10 +74,10 @@ class Orientation(NamedTuple):
 
 
 def _moments_chunk(levels, lvl, anchors, fp, units, sig_fctr, rad_fctr,
-                   extents):
-    n = levels.shape[1:]
+                   extents, z_view):
+    n = tuple(levels.shape[1:3]) + (z_view[1],)
     center, sd = fp[:, :3], fp[:, 3]
-    win, start = gather_windows(levels, lvl, anchors, extents)
+    win, start = gather_windows(levels, lvl, anchors, extents, z_view)
     K = fp.shape[0]
     sigma = sd * np.float32(sig_fctr)
     rad = sigma * np.float32(rad_fctr)
@@ -102,25 +109,38 @@ def _moments_chunk(levels, lvl, anchors, fp, units, sig_fctr, rad_fctr,
     w = torch.where(mask, torch.exp(-0.5 * sq / (s * s)), 0.0)
     g = torch.stack([gx, gy, gz], dim=-1).reshape(K, -1, 3)
     wg = w.reshape(K, -1, 1) * g
-    return torch.einsum("kvi,kvj->kij", wg, g), wg.sum(dim=1)
+    if K == 1:
+        # torch takes a batch of one as a single matrix product, which sums
+        # in another order than the batched one: pair the keypoint with
+        # itself, so that its moments do not depend on how many keypoints
+        # share the call (a shard's or a volume's alone).
+        A = torch.einsum("kvi,kvj->kij", wg.expand(2, -1, -1),
+                         g.expand(2, -1, -1))[:1]
+    else:
+        A = torch.einsum("kvi,kvj->kij", wg, g)
+    return A, wg.sum(dim=1)
 
 
 def ori_moments_plain(levels: torch.Tensor, lvl: torch.Tensor,
                       anchors: torch.Tensor, fp: torch.Tensor, units,
                       sig_fctr: float, rad_fctr: float, sd_max: float,
-                      margin: int = 0, chunk: int = 256):
+                      margin: int = 0, chunk: int = 256, z_origin: int = 0,
+                      global_nz: int | None = None):
     """Window moments (A [K, 3, 3], vd [K, 3]) from gathered windows and
     masked sums, as sift3d_tpu/orientation.py:48 _window_moments.
     anchors i64[K, 3] window anchors; fp f32[K, 4] = (cx, cy, cz, sd), sd
-    <= sd_max; margin the windows' slack for fractional centers."""
+    <= sd_max; margin the windows' slack for fractional centers; levels a
+    z-slab whose row 0 is global z z_origin of a volume global_nz deep."""
     warm_cpu_math(levels.device)
-    n = levels.shape[1:]
+    n = tuple(levels.shape[1:3]) + (
+        levels.shape[3] if global_nz is None else int(global_nz),)
+    z_view = (int(z_origin), n[2])
     rad_max = sig_fctr * sd_max * rad_fctr
     extents = tuple(window_extent(rad_max / units[a], n[a], margin)
                     for a in range(3))
     parts = [_moments_chunk(levels, lvl[s:s + chunk], anchors[s:s + chunk],
                             fp[s:s + chunk], units, sig_fctr, rad_fctr,
-                            extents)
+                            extents, z_view)
              for s in range(0, fp.shape[0], chunk)]
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
@@ -231,8 +251,9 @@ def _epilogue(A, vd, params) -> Orientation:
 def orient_plain(levels: torch.Tensor, lvl: torch.Tensor,
                  anchors: torch.Tensor, sd: torch.Tensor, units, params, *,
                  centers: torch.Tensor | None = None,
-                 sd_max: float | None = None,
-                 fractional: bool = False) -> Orientation:
+                 sd_max: float | None = None, fractional: bool = False,
+                 z_origin: int = 0,
+                 global_nz: int | None = None) -> Orientation:
     """Plain version: ori_moments_plain, eigh3x3_plain, then the tests."""
     if centers is None:
         centers = anchors.to(torch.float32)
@@ -241,14 +262,16 @@ def orient_plain(levels: torch.Tensor, lvl: torch.Tensor,
     fp = torch.cat([centers, sd[:, None]], dim=1)
     A, vd = ori_moments_plain(levels, lvl, anchors, fp.contiguous(), units,
                               params.ori_sig_fctr, params.ori_rad_fctr,
-                              sd_max, 4 if fractional else 0)
+                              sd_max, 4 if fractional else 0,
+                              z_origin=z_origin, global_nz=global_nz)
     return _epilogue(A, vd, params)
 
 
 def orient(levels: torch.Tensor, lvl: torch.Tensor, anchors: torch.Tensor,
            sd: torch.Tensor, units, params, *,
            centers: torch.Tensor | None = None, sd_max: float | None = None,
-           fractional: bool = False) -> Orientation:
+           fractional: bool = False, z_origin: int = 0,
+           global_nz: int | None = None) -> Orientation:
     """Orientation of K keypoints of one octave.
 
     levels f32[L, nx, ny, nz]; lvl i64[K] level per keypoint; anchors
@@ -256,16 +279,22 @@ def orient(levels: torch.Tensor, lvl: torch.Tensor, anchors: torch.Tensor,
     DetectorParams. centers f32[K, 3] (default: the anchors) are the true
     window centers, within a voxel of the anchors when fractional; sd_max
     (default: max sd) bounds sd. The anchors, sd_max and fractional size
-    and place the plain version's windows only."""
+    and place the plain version's windows only. levels may be a z-slab
+    whose row 0 is global z z_origin of a volume global_nz deep. On the
+    card a keypoint whose window leaves the slab gets NaN A, vd and R and
+    no flag set (the kernel reads nothing outside the slab); the plain
+    version raises ValueError."""
     global launches
     if levels.device.type == "cpu":
         return orient_plain(levels, lvl, anchors, sd, units, params,
                             centers=centers, sd_max=sd_max,
-                            fractional=fractional)
+                            fractional=fractional, z_origin=z_origin,
+                            global_nz=global_nz)
     K = anchors.shape[0]
     if centers is None:
         centers = anchors.to(torch.float32)
-    _, nx, ny, nz = levels.shape
+    _, nx, ny, nzs = levels.shape
+    gnz = nzs if global_nz is None else int(global_nz)
     _build.check_cuda("orient levels", levels, torch.float32)
     _build.check_cuda("orient lvl", lvl, torch.int64, (K,))
     _build.check_cuda("orient centers", centers, torch.float32, (K, 3))
@@ -282,7 +311,8 @@ def orient(levels: torch.Tensor, lvl: torch.Tensor, anchors: torch.Tensor,
                 params.corner_thresh]
         _build.call("s3d_orient", levels.data_ptr(), lvl.data_ptr(),
                     centers.data_ptr(), sd.data_ptr(), moments.data_ptr(),
-                    R.data_ptr(), flags.data_ptr(), K, nx, ny, nz,
+                    R.data_ptr(), flags.data_ptr(), K, nx, ny, nzs,
+                    int(z_origin), gnz,
                     *(float(np.float32(x)) for x in scal),
                     _build.stream_ptr(levels))
         launches += 1

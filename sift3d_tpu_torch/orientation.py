@@ -44,14 +44,18 @@ def assign_orientations(levels: torch.Tensor, lvl: torch.Tensor,
                         params: DetectorParams, *,
                         centers: torch.Tensor | None = None,
                         sd_max: float | None = None,
-                        fractional: bool = False) -> OrientationResult:
+                        fractional: bool = False, z_origin: int = 0,
+                        global_nz: int | None = None) -> OrientationResult:
     """Orientation of K keypoints of one octave.
 
     levels f32[nl, nx, ny, nz] (the octave's keypoint levels); lvl i64[K]
     level index; coords i64[K, 3] integer anchors; sd f32[K] absolute
     scale, at most sd_max (default: its max); centers f32[K, 3] the window
-    centers (default: coords), within a voxel of coords when fractional."""
+    centers (default: coords), within a voxel of coords when fractional.
+    levels may be a z-slab whose row 0 is global z z_origin of a volume
+    global_nz deep."""
     o = orient(levels, lvl, coords, sd, units, params, centers=centers,
-               sd_max=sd_max, fractional=fractional)
+               sd_max=sd_max, fractional=fractional, z_origin=z_origin,
+               global_nz=global_nz)
     return OrientationResult(o.R, o.accepted, o.reject_grad, o.reject_ratio,
                              o.reject_corner)

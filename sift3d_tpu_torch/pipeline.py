@@ -33,10 +33,12 @@ on, the strengths are the true ones (sift3d_tpu/pipeline.py:1649-1652).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from .descriptor import extract_descriptors as _extract_octave
+from .descriptor import normalize, octave_histograms
 from .detect import detect_extrema_octave
 from .keypoints import Descriptors, Keypoints
 from .orientation import assign_orientations
@@ -66,6 +68,18 @@ def _as_batch(vols) -> torch.Tensor:
                          f"got shape {tuple(vols.shape)}")
     return vols
 
+
+class SlabView(NamedTuple):
+    """One shard's z-slab of an octave (parallel/spatial.py): the DoG
+    stack handed to _octave holds the shard's own rows `rows` with a
+    one-voxel halo, its row 0 at global z `dog_origin`; `levels` are the
+    keypoint levels with the orientation windows' halo, row 0 at global z
+    `levels_origin`; `nz` the octave's depth."""
+    dog_origin: int
+    rows: tuple[int, int]
+    levels: torch.Tensor
+    levels_origin: int
+    nz: int
 
 
 class SIFT3D:
@@ -163,7 +177,8 @@ class SIFT3D:
         self._plan, self._gpyr = plan, [g[None] for g in gpyr]
         self._input_shape = tuple(int(d) for d in input_shape)
 
-    def _octave(self, plan, o, gpyr_o, dog, dogmax) -> np.ndarray | None:
+    def _octave(self, plan, o, gpyr_o, dog, dogmax,
+                slab: SlabView | None = None) -> np.ndarray | None:
         """Candidates of octave o of a (sub-)batch, volume-major and in
         each volume level -> z, y, x order, their refinement when an
         extension is on, their orientations: one host copy of their rows
@@ -176,14 +191,23 @@ class SIFT3D:
         offset, sd = scale[level + 1] * 2^(ds / nl), and the edge test's
         rejections drop out. With either extension on, orientation windows
         take the fractional-center margin and a largest scale 2^(1/nl)
-        above the octave's top level (|ds| <= 1 level)."""
+        above the octave's top level (|ds| <= 1 level).
+
+        slab: one shard's rows of one volume (dog its haloed DoG slab), in
+        global coordinates."""
         params = self.params
         nl = params.num_kp_levels
         ext = params.extensions
         S, L = gpyr_o.shape[:2]
         if S == 1:       # one volume: its own stacks, no volume to decode
             dog, dogmax = dog[0], dogmax[0]
-        cand = detect_extrema_octave(dog, dogmax, params)
+        zkw = {}
+        if slab is not None:
+            cand = detect_extrema_octave(dog, dogmax, params, slab.dog_origin,
+                                         slab.nz, slab.rows)
+            zkw = dict(z_origin=slab.levels_origin, global_nz=slab.nz)
+        else:
+            cand = detect_extrema_octave(dog, dogmax, params)
         if cand.level.numel() == 0:
             return None
         scales = torch.tensor(plan.scales[o][1:1 + nl],
@@ -192,12 +216,18 @@ class SIFT3D:
         sd_max = plan.scales[o][nl]
         centers = None
         if ext:
-            ref = refine_candidates_octave(dog, cand.coords, cand.level,
+            local = cand.coords
+            if slab is not None:    # the candidates' rows in the DoG slab
+                local = local - torch.tensor([0, 0, slab.dog_origin],
+                                             device=local.device)
+            ref = refine_candidates_octave(dog, local, cand.level,
                                            params, batch=cand.batch)
             centers = cand.coords.to(torch.float32) + ref.offset
             sd = sd * torch.exp2(ref.ds / nl)
             sd_max *= 2.0 ** (1.0 / nl)
-        if cand.batch is None:
+        if slab is not None:
+            levels, lvl = slab.levels, cand.level
+        elif cand.batch is None:
             levels, lvl = gpyr_o[0, 1:1 + nl], cand.level
         else:
             # The sub-batch's levels as one stack [S * L, nx, ny, nz]:
@@ -207,7 +237,7 @@ class SIFT3D:
         ori = assign_orientations(levels, lvl, cand.coords, sd,
                                   plan.level_units(o), params,
                                   centers=centers, sd_max=sd_max,
-                                  fractional=ext)
+                                  fractional=ext, **zkw)
         accepted = ori.accepted & ref.edge_ok if ext else ori.accepted
         K = cand.level.numel()
         # Every column in f32 (exact for these values: coordinates and
@@ -295,7 +325,7 @@ class SIFT3D:
 
     def _describe(self, kps) -> list[Descriptors]:
         """Descriptors of volume b's keypoints kps[b], one kernel launch
-        and one host copy per octave for the whole batch."""
+        per octave for the whole batch and one host copy."""
         plan = self._plan
         nl = self.params.num_kp_levels
         B, L = self._gpyr[0].shape[:2]
@@ -313,6 +343,7 @@ class SIFT3D:
                for kp in kps]
         dev = self.device
         octaves = np.unique(np.concatenate([kp.octave for kp in kps]))
+        sels, hists, xyzs = [], [], []
         for o in octaves:
             o = int(o)
             sel = [np.nonzero(kp.octave == o)[0] for kp in kps]
@@ -324,7 +355,7 @@ class SIFT3D:
             # The level in the batch's stack: volume b's level l is b*L+1+l.
             stack = np.repeat(np.arange(B) * L + 1, [len(i) for i in sel])
             g = self._gpyr[o]
-            desc, xyz_o = _extract_octave(
+            hist, xyz_o = octave_histograms(
                 g.reshape((B * L,) + tuple(g.shape[2:])),
                 torch.as_tensor(stack + np.concatenate(
                     [kp.level[i] for kp, i in zip(kps, sel)]),
@@ -333,8 +364,16 @@ class SIFT3D:
                 put("sd", torch.float32), o, plan.level_units(o),
                 self.params, sd_max=plan.scales[o][nl] * sd_fctr,
                 fractional=refined)
-            host = torch.cat([desc, xyz_o], dim=1).cpu().numpy()
-            start = 0
+            sels.append(sel)
+            hists.append(hist)
+            xyzs.append(xyz_o)
+        if not sels:
+            return out
+        # Every octave's histograms normalized at once, one host copy.
+        host = torch.cat([normalize(torch.cat(hists), self.params),
+                          torch.cat(xyzs)], dim=1).cpu().numpy()
+        start = 0
+        for sel in sels:
             for d, i in zip(out, sel):
                 rows = host[start:start + len(i)]
                 start += len(i)

@@ -96,11 +96,14 @@ def make_plan(input_dims: Sequence[int], units: Sequence[float],
         first_taps=tuple(first_taps.tolist()), level_taps=tuple(level_taps))
 
 
-def scale_to_unit(vol: torch.Tensor) -> torch.Tensor:
+def scale_to_unit(vol: torch.Tensor,
+                  m: torch.Tensor | None = None) -> torch.Tensor:
     """Scale to [-1, 1] by the max absolute value (im_scale,
     imutil.c:697-713); a zero image passes through unchanged. A batch
-    [B, nx, ny, nz] scales each volume by its own max."""
-    m = vol.abs().flatten(-3).amax(dim=-1)[(...,) + (None,) * 3]
+    [B, nx, ny, nz] scales each volume by its own max. m, where given, is
+    that max (of the whole volume, for one of its z-slabs)."""
+    if m is None:
+        m = vol.abs().flatten(-3).amax(dim=-1)[(...,) + (None,) * 3]
     return torch.where(m == 0.0, vol, vol / m)
 
 

@@ -286,8 +286,8 @@ def register_batch(fixed_vols, moving_vols, params=None,
                    nn_thresh: float = 0.8, err_thresh: float = 5.0,
                    num_iter: int = 500, kp_limit: int = 0, seed: int = 0,
                    units=(1.0, 1.0, 1.0), det=None,
-                   device: torch.device | str = "cuda"
-                   ) -> list[RegistrationResult]:
+                   device: torch.device | str = "cuda", mesh=None,
+                   axis: str = "b") -> list[RegistrationResult]:
     """Register B same-shape volume pairs (BASELINE config 5) on `device`
     (sift3d_tpu/registration.py:342 register_batch): all 2B volumes go
     through one SIFT3D.detect_keypoints_batch and
@@ -296,7 +296,12 @@ def register_batch(fixed_vols, moving_vols, params=None,
     volumes) at voxel `units`; det a SIFT3D to run them (default
     SIFT3D(params, device)). Result b equals register() of pair b. A pair
     with fewer than 4 matches, a featureless volume's among them, gives
-    affine=None and no inliers."""
+    affine=None and no inliers. With a mesh (parallel.make_mesh), the 2B
+    volumes' detection and description are split over the devices of its
+    axis `axis` (parallel.MeshBatchSIFT3D; the counterpart of
+    sift3d_tpu/registration.py:342-351's batch sharded over a mesh axis);
+    matching and RANSAC run on the detector's device, by default the
+    axis's first."""
     from .pipeline import SIFT3D, _as_batch
 
     fixed, moving = _as_batch(fixed_vols), _as_batch(moving_vols)
@@ -304,7 +309,10 @@ def register_batch(fixed_vols, moving_vols, params=None,
     if tuple(moving.shape) != tuple(fixed.shape):
         raise ValueError(f"fixed {tuple(fixed.shape)} and moving "
                          f"{tuple(moving.shape)} batches differ")
-    if det is None:
+    if det is None and mesh is not None:
+        from .parallel.batch import MeshBatchSIFT3D
+        det = MeshBatchSIFT3D(params or DetectorParams(), mesh, axis)
+    elif det is None:
         det = SIFT3D(params or DetectorParams(), device)
     kps = det.detect_keypoints_batch(
         torch.cat([fixed, moving.to(fixed.device)]), units)

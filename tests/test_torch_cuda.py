@@ -427,3 +427,236 @@ def test_loader_uploads_on_card(dev, tmp_path):
     assert [v.shape[0] for v, _ in gpu] == [2, 2, 1]
     for (g, gu), (c, cu) in zip(gpu, cpu):
         assert g.is_cuda and gu == cu and torch.equal(g.cpu(), c)
+
+
+def test_desc_fused_repeats_its_bits(dev):
+    """s3d_desc_fused sums in exact integers: two calls give the same
+    bits, and each keypoint's histogram is the same in any launch (alone,
+    in a subset, in another order), whatever the split; still within
+    rel-L2 1e-5 of the plain version."""
+    from sift3d_tpu_torch.ops import desc_kernel as dk
+    from sift3d_tpu_torch.params import DetectorParams
+    shape = (40, 36, 44)
+    levels = _rand((3,) + shape, 21, dev)
+    K = 12
+    lvl, _, centers, _ = _fractional(dev, K, shape, 3, 22)
+    sd = torch.linspace(1.6, 3.1, K, device=dev)
+    Q, _ = torch.linalg.qr(_rand((K, 3, 3), 23, dev))
+    R = Q.contiguous()
+    args = (DetectorParams(), 3.2, True)
+
+    def run(sel):
+        return dk.desc_fused(levels, lvl[sel], centers[sel], R[sel], sd[sel],
+                             (1.0, 1.0, 1.0), *args)
+    every = torch.arange(K, device=dev)
+    a, b = run(every), run(every)
+    assert torch.equal(a, b)
+    for sel in (every[:1], every[3:8], every.flip(0)):
+        assert torch.equal(run(sel), a[sel])
+    ref = dk.desc_fused_plain(levels, lvl, centers, R, sd, (1.0, 1.0, 1.0),
+                              *args)
+    rel = (a - ref).reshape(K, -1).norm(dim=1) / ref.reshape(K, -1) \
+        .norm(dim=1)
+    assert bool((rel <= 1e-5).all()), rel
+
+
+def _phantom_octave0(dev, n=64):
+    """Octave 0 of the sparse bench phantom at n^3 on the card: plan,
+    params, levels, DoG, max |DoG|, candidates."""
+    from sift3d_tpu_torch.detect import detect_extrema_octave
+    from sift3d_tpu_torch.params import DetectorParams
+    from sift3d_tpu_torch.phantoms import bench_volume
+    from sift3d_tpu_torch.pyramid import (build_gpyr_and_dog, make_plan,
+                                          scale_to_unit)
+    params = DetectorParams()
+    x = scale_to_unit(bench_volume("dense", n, dev))
+    plan = make_plan(x.shape, (1.0, 1.0, 1.0), params)
+    g, d, m = build_gpyr_and_dog(x, plan)
+    cand = detect_extrema_octave(d[0], m[0], params)
+    return plan, params, x, g[0], d[0], m[0], cand
+
+
+def test_slab_launches_equal_whole_volume(dev):
+    """Each kernel launched on four haloed z-slabs of octave 0 equals one
+    whole-volume launch bit for bit: the pyramid (x pass per slab, y/z +
+    DoG on the haloed x output), the extrema keys, the orientation (A,
+    vd, R, flags) at integer and fractional centers, the descriptors."""
+    from sift3d_tpu_torch.ops import desc_kernel as dk
+    from sift3d_tpu_torch.ops import extrema_kernel as ek
+    from sift3d_tpu_torch.ops import ori_kernel as ok
+    from sift3d_tpu_torch.parallel import z_extend
+    from sift3d_tpu_torch.parallel.spatial import (build_gpyr_sharded,
+                                                   desc_halo, ori_halo)
+    from sift3d_tpu_torch.pyramid import build_gpyr_and_dog
+    plan, params, x, gpyr, dog, dmax, cand = _phantom_octave0(dev)
+    n, nz = 16, 64
+    slabs = [c.contiguous() for c in x.chunk(4, dim=-1)]
+    octs, flags = build_gpyr_sharded(slabs, plan, [dev] * 4)
+    whole = build_gpyr_and_dog(x, plan)
+    for o, sl in enumerate(octs):
+        assert torch.equal(torch.cat([s.gpyr for s in sl], -1), whole[0][o])
+        assert torch.equal(torch.cat([s.dog for s in sl], -1), whole[1][o])
+    nl = params.num_kp_levels
+    thr = (params.peak_thresh * dmax[1:1 + nl]).contiguous()
+    keys, _ = ek.extrema_candidates(dog, thr)
+    parts = [ek.extrema_candidates(e, thr, z_origin=n * s - 1, global_nz=nz,
+                                   z_rows=(1, n + 1))[0]
+             for s, e in enumerate(z_extend([c.contiguous() for c in
+                                             dog.chunk(4, dim=-1)], 1))]
+    assert torch.equal(torch.sort(torch.cat(parts)).values,
+                       torch.sort(keys).values)
+    levels = gpyr[1:1 + nl]
+    lslabs = [c.contiguous() for c in levels.chunk(4, dim=-1)]
+    K = cand.level.numel()
+    sd = torch.tensor(plan.scales[0][1:1 + nl], device=dev)[cand.level]
+    g = np.random.default_rng(5)
+    for frac in (False, True):
+        centers = cand.coords.float()
+        sd_max = plan.scales[0][nl]
+        if frac:
+            centers = centers + torch.from_numpy(
+                g.uniform(-1, 1, (K, 3)).astype(np.float32)).to(dev)
+            sd_max *= 2.0 ** (1.0 / nl)
+        kw = dict(centers=centers.contiguous(), sd_max=sd_max,
+                  fractional=frac)
+        ref = ok.orient(levels, cand.level, cand.coords, sd, plan.units,
+                        params, **kw)
+        R = ref.R.contiguous()
+        dref = dk.desc_fused(levels, cand.level, kw["centers"], R, sd,
+                             plan.units, params, sd_max, frac)
+        h = ori_halo(plan, 0, type(params)(refine_subvoxel=frac))
+        hd = desc_halo(plan, 0, params, frac)
+        owner = torch.clamp(torch.round(centers[:, 2]).long() // n, 0, 3)
+        for s in range(4):
+            sel = (cand.coords[:, 2] >= n * s) & (cand.coords[:, 2] < n * s + n)
+            got = ok.orient(z_extend(lslabs, h)[s], cand.level[sel],
+                            cand.coords[sel], sd[sel], plan.units, params,
+                            centers=kw["centers"][sel], sd_max=sd_max,
+                            fractional=frac, z_origin=n * s - h,
+                            global_nz=nz)
+            for f in got._fields:
+                assert torch.equal(getattr(got, f), getattr(ref, f)[sel]), f
+            mine = owner == s
+            dg = dk.desc_fused(z_extend(lslabs, hd)[s], cand.level[mine],
+                               kw["centers"][mine], R[mine], sd[mine],
+                               plan.units, params, sd_max, frac,
+                               z_origin=n * s - hd, global_nz=nz)
+            assert torch.equal(dg, dref[mine]), s
+
+
+def _box_rows(c, sd, sig_fctr, rad_fctr, u, nz):
+    """Global rows [a, b) that the kernels read for a keypoint at z c of
+    scale sd: its loop-bound box along z (f32, as the kernels) with the
+    gradient border."""
+    f = np.float32
+    rad = f(f(f(sd) * f(sig_fctr)) * f(rad_fctr))
+    ra = f(rad / f(u))
+    lo = max(int(np.floor(f(f(c) - ra))), 1)
+    hi = min(int(np.ceil(f(f(c) + ra))), nz - 2)
+    return lo - 1, hi + 2
+
+
+def test_slab_short_of_a_box_reads_nan(dev, monkeypatch):
+    """A z-slab that holds exactly a keypoint's box and its gradient
+    border gives the whole-volume launch's bits; one row short at either
+    end, the kernels read nothing outside it: the orientation's A, vd and
+    R read NaN with no flag set, the descriptor row NaN. ShardedSIFT3D
+    with a halo too thin raises."""
+    from sift3d_tpu_torch.ops import desc_kernel as dk
+    from sift3d_tpu_torch.ops import ori_kernel as ok
+    from sift3d_tpu_torch.parallel import ShardedSIFT3D, make_mesh, spatial
+    from sift3d_tpu_torch.phantoms import bench_volume
+    plan, params, _, gpyr, _, _, cand = _phantom_octave0(dev)
+    nl, nz = params.num_kp_levels, plan.octave_dims[0][2]
+    levels = gpyr[1:1 + nl]
+    k = int(np.argmin(np.abs(cand.coords[:, 2].cpu().numpy() - nz // 2)))
+    lvl, co = cand.level[k:k + 1], cand.coords[k:k + 1]
+    sd = torch.tensor(plan.scales[0][1:1 + nl], device=dev)[lvl]
+    sd_max = plan.scales[0][nl]
+    ref = ok.orient(levels, lvl, co, sd, plan.units, params, sd_max=sd_max)
+    R = ref.R.contiguous()
+    centers = co.float().contiguous()
+    dref = dk.desc_fused(levels, lvl, centers, R, sd, plan.units, params,
+                         sd_max)
+    assert not torch.isnan(dref).any()
+
+    def ori(a, b):
+        return ok.orient(levels[..., a:b].contiguous(), lvl, co, sd,
+                         plan.units, params, sd_max=sd_max, z_origin=a,
+                         global_nz=nz)
+
+    def desc(a, b):
+        return dk.desc_fused(levels[..., a:b].contiguous(), lvl, centers, R,
+                             sd, plan.units, params, sd_max, z_origin=a,
+                             global_nz=nz)
+    c, s = float(co[0, 2]), float(sd[0])
+    a, b = _box_rows(c, s, params.ori_sig_fctr, params.ori_rad_fctr,
+                     plan.units[2], nz)
+    assert 0 < a and b < nz
+    got = ori(a, b)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    for a2, b2 in ((a + 1, b), (a, b - 1)):
+        got = ori(a2, b2)
+        for f in ("A", "vd", "R"):
+            assert torch.isnan(getattr(got, f)).all(), f
+        for f in ("accepted", "reject_grad", "reject_ratio",
+                  "reject_corner"):
+            assert not getattr(got, f).any(), f
+    a, b = _box_rows(c, s, params.desc_sig_fctr, params.desc_rad_fctr,
+                     plan.units[2], nz)
+    assert 0 < a and b < nz
+    assert torch.equal(desc(a, b), dref)
+    for a2, b2 in ((a + 1, b), (a, b - 1)):
+        assert torch.isnan(desc(a2, b2)).all()
+    # The sharded detector's own halos, made too thin.
+    vol = bench_volume("dense", 64, dev)
+    mesh = make_mesh({"z": 4}, [dev] * 4)
+    with monkeypatch.context() as m:
+        m.setattr(spatial, "ori_halo", lambda *a: 0)
+        with pytest.raises(ValueError, match="orientation window"):
+            ShardedSIFT3D(params, mesh=mesh).detect_keypoints(vol)
+    det = ShardedSIFT3D(params, mesh=mesh)
+    kp = det.detect_keypoints(vol)
+    assert len(kp) > 0
+    monkeypatch.setattr(spatial, "desc_halo", lambda *a: 1)
+    with pytest.raises(ValueError, match="descriptor window"):
+        det.extract_descriptors(kp)
+
+
+@pytest.mark.parametrize("ext", [{}, {"refine_subvoxel": True,
+                                      "edge_thresh": 10.0}],
+                         ids=["default", "refined"])
+def test_sharded_sift3d_on_card(dev, ext):
+    """ShardedSIFT3D on four shards of one card equals SIFT3D on the card
+    bit for bit, rows and descriptors, and every shard launches the
+    kernels; the batch over a mesh axis equals the unsharded batch."""
+    import sift3d_tpu_torch as st
+    from sift3d_tpu_torch.ops import blur_kernel as bk
+    from sift3d_tpu_torch.parallel import MeshBatchSIFT3D, ShardedSIFT3D, \
+        make_mesh
+    from sift3d_tpu_torch.phantoms import bench_volume
+    vol = bench_volume("dense", 64, dev)
+    p = st.DetectorParams(**ext)
+    one = st.SIFT3D(p, dev)
+    kp1 = one.detect_keypoints(vol)
+    ds1 = one.extract_descriptors(kp1)
+    det = ShardedSIFT3D(p, mesh=make_mesh({"z": 4}, [dev] * 4))
+    n0 = bk.blur_yz_dog_launches
+    kp2 = det.detect_keypoints(vol)
+    assert bk.blur_yz_dog_launches - n0 > 4 * 6
+    ds2 = det.extract_descriptors(kp2)
+    assert len(kp1) > 5
+    for f in ("coords", "octave", "level", "sd", "strength", "R"):
+        assert np.array_equal(getattr(kp1, f), getattr(kp2, f)), f
+    assert np.array_equal(ds1.data, ds2.data)
+    assert np.array_equal(ds1.xyz, ds2.xyz)
+    vols = torch.stack([vol, bench_volume("sparse", 64, dev), vol.flip(0)])
+    kps = one.detect_keypoints_batch(vols)
+    dss = one.extract_descriptors_batch(kps)
+    mb = MeshBatchSIFT3D(p, make_mesh({"b": 2}, [dev] * 2))
+    got = mb.detect_keypoints_batch(vols)
+    gds = mb.extract_descriptors_batch(got)
+    for a, b, c, d in zip(kps, got, dss, gds):
+        assert np.array_equal(a.coords, b.coords) and \
+            np.array_equal(a.R, b.R) and np.array_equal(c.data, d.data)

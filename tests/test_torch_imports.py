@@ -18,6 +18,8 @@ import sift3d_tpu_torch
 import sift3d_tpu_torch.cli, sift3d_tpu_torch.io
 import sift3d_tpu_torch.refinement, sift3d_tpu_torch.registration
 import sift3d_tpu_torch.io.loader
+import sift3d_tpu_torch.parallel
+from sift3d_tpu_torch.parallel import batch, halo, mesh, spatial
 from sift3d_tpu_torch import native
 from sift3d_tpu_torch.ops import (_build, blur_kernel, desc_kernel,
                                   extrema_kernel, ori_kernel)
@@ -91,11 +93,15 @@ def test_wrappers_use_plain_version_only_on_cpu(mod, fn, args):
 
 
 @pytest.mark.parametrize("mod", ["refinement", "registration", "pipeline",
-                                 "io/loader", "native"])
+                                 "io/loader", "native", "parallel/__init__",
+                                 "parallel/batch", "parallel/mesh",
+                                 "parallel/halo", "parallel/spatial"])
 def test_new_modules_import_torch_and_no_jax(mod):
-    """refinement.py, registration.py, the batch pipeline, the loader and
-    the native runtime's bindings name nothing of jax or of the JAX
-    package in their imports (the bindings need no torch)."""
+    """refinement.py, registration.py, the batch pipeline, the loader, the
+    native runtime's bindings and the parallel package name nothing of jax
+    or of the JAX package in their imports (the bindings, and
+    parallel/__init__ and parallel/batch, which import the package's
+    modules only, name no torch)."""
     import ast
     tree = ast.parse((REPO / "sift3d_tpu_torch" / f"{mod}.py").read_text())
     names = set()
@@ -104,5 +110,7 @@ def test_new_modules_import_torch_and_no_jax(mod):
             names |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.add(node.module.split(".")[0])
-    assert ("torch" in names) == (mod != "native")
+    assert ("torch" in names) == (mod not in ("native",
+                                              "parallel/__init__",
+                                              "parallel/batch"))
     assert not names & {"jax", "jaxlib", "sift3d_tpu"}, names

@@ -234,9 +234,10 @@ def test_descriptors_fractional_match_jax(fractional_keypoints, units):
     Q, Rr = np.linalg.qr(rng.normal(size=(K, 3, 3)))
     Q = (Q * np.sign(np.diagonal(Rr, axis1=1, axis2=2))[:, None, :]) \
         .astype(np.float32)
-    desc, xyz = tdesc.extract_descriptors(
+    hist, xyz = tdesc.octave_histograms(
         levels, cand.level, centers, torch.from_numpy(Q), sd, 0, units, TP,
         sd_max, fractional=True)
+    desc = tdesc.normalize(hist, TP)
     ref = jdesc.extract_descriptors(
         jnp.asarray(levels.numpy()),
         jnp.asarray(np.rint(centers.numpy()).astype(np.int32)),

@@ -9,14 +9,17 @@ drift and the spread between processes hit both alike:
    (256) sparse bench phantom, or --dense, already on the card; with
    --refine under DetectorParams(refine_subvoxel=True, edge_thresh=10.0);
  - --register: register() of the phantom against its copy rotated by 8
-   degrees about z and shifted by (2, -1, 3) voxels (500 hypotheses).
+   degrees about z and shifted by (2, -1, 3) voxels (500 hypotheses);
+ - --shards S: the default work through parallel.ShardedSIFT3D on S
+   shards of the card (make_mesh({"z": S}, ["cuda:0"] * S)).
 Each run ends in a device sync. Prints the card, then per tree the median
 wall and its quartiles over --rounds (41) rounds after a warm-up, and the
 median of the paired differences A - B with the share of rounds in which
 A was the faster.
 
 Usage: python tools/torch_ab_wall.py --other DIR [--size N] [--dense]
-                                     [--refine] [--register] [--rounds N]
+                                     [--refine] [--register] [--shards S]
+                                     [--rounds N]
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dense", action="store_true")
     ap.add_argument("--refine", action="store_true")
     ap.add_argument("--register", action="store_true")
+    ap.add_argument("--shards", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=41)
     args = ap.parse_args(argv)
 
@@ -85,7 +89,12 @@ def main(argv=None) -> int:
     def job(st):
         params = (st.DetectorParams(refine_subvoxel=True, edge_thresh=10.0)
                   if args.refine else st.DetectorParams())
-        det = st.SIFT3D(params, "cuda")
+        if args.shards:
+            par = importlib.import_module(st.__name__ + ".parallel")
+            det = par.ShardedSIFT3D(params, mesh=par.make_mesh(
+                {"z": args.shards}, ["cuda:0"] * args.shards))
+        else:
+            det = st.SIFT3D(params, "cuda")
         if args.register:
             return lambda: st.register(vol, moving, num_iter=500,
                                        detectors=det, device="cuda")
@@ -109,8 +118,9 @@ def main(argv=None) -> int:
 
     what = (f"{'dense' if args.dense else 'sparse'}{n}"
             f"{' refined' if args.refine else ''}"
-            f"{' register pair' if args.register else ''}, input on the "
-            f"card")
+            f"{' register pair' if args.register else ''}"
+            f"{f' on {args.shards} shards' if args.shards else ''}, input "
+            f"on the card")
     print(f"{what}, {args.rounds} rounds alternating A and B, on {card}")
     for k, root in (("A", REPO), ("B", args.other.resolve())):
         w = walls[k]

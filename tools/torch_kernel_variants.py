@@ -14,7 +14,11 @@ identical), and is timed with CUDA events over 20 back-to-back launches
  - extrema_unroll1 / extrema_unroll8: 1 or 8 values a thread reads before
    testing them, against 4;
  - extrema_chunk1k / extrema_chunk8k: 1024 or 8192 voxels of a plane a
-   block, against 2048.
+   block, against 2048;
+ - desc_hists1 / 2 / 8: 1, 2 or 8 shared-memory histograms a block of the
+   descriptor kernel (warp w adds into w mod the count), against 4; timed
+   on the dense phantom's octave-0 keypoints, each variant's bits equal
+   to the package's kernel (exact integer sums).
 
 Usage: python tools/torch_kernel_variants.py
 """
@@ -35,11 +39,12 @@ OUT = REPO / "build" / "variants"
 VEC_X = ("      plane % 4 == 0 && src_bs % 4 == 0 &&\n"
          "          reinterpret_cast<uintptr_t>(src) % 16 == 0);",
          "      false);")
-VEC_YZ = ("      nz % 4 == 0 && src_bs % 4 == 0 &&\n"
+VEC_YZ = ("      nzs % 4 == 0 && src_bs % 4 == 0 &&\n"
           "          reinterpret_cast<uintptr_t>(src) % 16 == 0);",
           "      false);")
 UNROLL = "constexpr int kUnroll = 4;"
 CHUNK = "constexpr int kChunk = 2048;"
+HISTS = "constexpr int kHists = 4;"
 VARIANTS = {   # name: (source, substitutions)
     "blur": ("blur.cu", ()),
     "blur_4byte": ("blur.cu", (VEC_X, VEC_YZ)),
@@ -52,6 +57,10 @@ VARIANTS = {   # name: (source, substitutions)
                         ((CHUNK, "constexpr int kChunk = 1024;"),)),
     "extrema_chunk8k": ("extrema.cu",
                         ((CHUNK, "constexpr int kChunk = 8192;"),)),
+    "desc": ("desc.cu", ()),
+    "desc_hists1": ("desc.cu", ((HISTS, "constexpr int kHists = 1;"),)),
+    "desc_hists2": ("desc.cu", ((HISTS, "constexpr int kHists = 2;"),)),
+    "desc_hists8": ("desc.cu", ((HISTS, "constexpr int kHists = 8;"),)),
 }
 
 
@@ -148,7 +157,7 @@ def main() -> int:
                         xr.data_ptr(), prev.data_ptr(), cur.data_ptr(),
                         dog.data_ptr(), dm.data_ptr(), wy.data_ptr(), by, loy,
                         wz.data_ptr(), bz, loz, 1, 0, 0, 0, 0, 0, nx, ny, nz,
-                        ty, 64, xs, smem, stream) == 0
+                        nz, 0, ty, 64, xs, smem, stream) == 0
                 cur.zero_()
                 run_yz()
                 assert torch.equal(cur, cr) and torch.equal(dog, dr)
@@ -170,7 +179,7 @@ def main() -> int:
                 assert lib.s3d_extrema_candidates(
                     d.data_ptr(), thr.data_ptr(), keys.data_ptr(),
                     counts.data_ptr(), keys.numel(), 1, nl, nx, ny, nz,
-                    cuboid, stream) == 0
+                    1, nz - 2, 0, nz, cuboid, stream) == 0
             counts.zero_()
             run_e()
             n = int(counts[0])
@@ -181,7 +190,64 @@ def main() -> int:
     print(f"  for scale: torch sum of the DoG levels "
           f"{cuda_ms(torch, lambda: d.sum()):.4f}, copy of one volume "
           f"{cuda_ms(torch, lambda: tmp.copy_(x)):.4f}")
+    desc_variants(torch, libs, params, dev, stream, card)
     return 0
+
+
+def desc_variants(torch, libs, params, dev, stream, card) -> None:
+    """The descriptor kernel's variants on the dense phantom's octave-0
+    keypoints (those orientation accepts), each against the package's
+    wrapper bit for bit."""
+    import numpy as np
+
+    from sift3d_tpu_torch.detect import detect_extrema_octave
+    from sift3d_tpu_torch.ops import desc_kernel as dk
+    from sift3d_tpu_torch.ops import ori_kernel as ok
+    from sift3d_tpu_torch.phantoms import bench_volume
+    from sift3d_tpu_torch.pyramid import build_gpyr_and_dog, make_plan, \
+        scale_to_unit
+    x = scale_to_unit(bench_volume("dense", 256, dev))
+    plan = make_plan(x.shape, (1.0, 1.0, 1.0), params)
+    gpyr, dogs, dmax = build_gpyr_and_dog(x, plan)
+    nl = params.num_kp_levels
+    cand = detect_extrema_octave(dogs[0], dmax[0], params)
+    levels = gpyr[0][1:1 + nl]
+    sd = torch.tensor(plan.scales[0][1:1 + nl], device=dev)[cand.level]
+    ori = ok.orient(levels, cand.level, cand.coords, sd, plan.units, params)
+    acc = ori.accepted
+    lvl, centers = cand.level[acc], cand.coords[acc].float().contiguous()
+    R, sd = ori.R[acc].contiguous(), sd[acc].contiguous()
+    K = lvl.numel()
+    sd_max = plan.scales[0][nl]
+    ref = dk.desc_fused(levels, lvl, centers, R, sd, plan.units, params,
+                        sd_max)
+    geom, face_idx = dk._consts(dev)
+    box = int(np.prod([e - 2 for e in dk.window_extents(
+        sd_max, plan.units, plan.octave_dims[0], params)]))
+    splits = max(1, min(-(-dk._MIN_BLOCKS // K),
+                        box // dk._VOX_PER_BLOCK_MIN))
+    u = [np.float32(v) for v in plan.units]
+    scal = [*u, *[np.float32(1.0) / v for v in u], params.desc_sig_fctr,
+            params.desc_rad_fctr, dk._SQRT2, params.bary_eps]
+    out = torch.empty_like(ref)
+    nx, ny, nz = plan.octave_dims[0]
+    print(f"256^3 dense, octave 0, {K} keypoints, on {card}; ms per launch")
+    for name in [n for n in VARIANTS if n.startswith("desc")]:
+        lib = libs[name]
+        accb = torch.zeros((K, 768), dtype=torch.int64, device=dev)
+        bad = torch.zeros(K, dtype=torch.int32, device=dev)
+
+        def run_d():
+            accb.zero_()
+            assert lib.s3d_desc_fused(
+                levels.data_ptr(), lvl.data_ptr(), centers.data_ptr(),
+                R.data_ptr(), sd.data_ptr(), geom.data_ptr(),
+                face_idx.data_ptr(), accb.data_ptr(), bad.data_ptr(),
+                out.data_ptr(), K, splits, nx, ny, nz, 0, nz,
+                *(float(np.float32(v)) for v in scal), stream) == 0
+        run_d()
+        assert torch.equal(out, ref), name
+        print(f"  {name}: {cuda_ms(torch, run_d):.4f}")
 
 
 if __name__ == "__main__":
