@@ -57,6 +57,18 @@ and the extrema kernel at least once, and on the sparse bench phantom at
 512^3 bit for bit against the single-device port, with walls, peak memory
 and the pyramid each shard holds.
 
+Profiling and the funnel (sift3d_tpu_torch.profiling): sparse256 and
+dense256 run detect_keypoints + extract_descriptors again inside
+StageTimes stages ("detect", "describe") and a profiling.trace; the trace
+must hold both spans and every launch of the five CUDA kernels inside
+them, the rows and descriptors must equal the same detector's run outside
+the spans bit for bit, with the same launches. Each main-path cell's
+detection funnel (SIFT3D._funnel) must equal JAX's count for count
+(tests/data/torch_golden_funnel.json), its survivors summing to the
+keypoint count; and sparse256 with every execution knob of DetectorParams
+at a value other than its default must give the default run's bits and
+launches.
+
 Prints the card (nvidia-smi name, power limit), versions and build time,
 one line per phase, a JSON line of per-kernel results (time, plain time,
 the bound from the H100's peak rates, and a PyTorch library call's time
@@ -89,6 +101,25 @@ CELLS = {"sparse256": ("sparse", 256, (1.0, 1.0, 1.0), 7, {}),
          "refine128": ("sparse", 128, (1.0, 1.0, 1.0), 3, REFINED)}
 GOLDENS = {cell: ROOT / "tests" / "data" / f"torch_golden_{cell}.npz"
            for cell in CELLS}
+# JAX's detection funnel of each main-path cell.
+FUNNEL_GOLDEN = ROOT / "tests" / "data" / "torch_golden_funnel.json"
+# The cells run inside StageTimes spans and a trace.
+TRACED_CELLS = ("sparse256", "dense256")
+# The five CUDA kernels of the main path: entry point -> device function.
+PATH_KERNELS = {"s3d_blur_x": "blur_x_kernel",
+                "s3d_blur_yz_dog": "blur_yz_dog_kernel",
+                "s3d_extrema_candidates": "extrema_kernel",
+                "s3d_orient": "ori_kernel",
+                "s3d_desc_fused": "desc_kernel"}
+# Every execution knob of DetectorParams at a valid value other than its
+# default: the port computes one exact f32 path at every value.
+ALL_KNOBS = dict(kp_per_level=1, conv_precision="default",
+                 desc_precision="highest", conv_tail_precision="default",
+                 conv_exact_from_octave=9, gpyr_impl="composed",
+                 dense_octave_acc=1, dense_octave_cand=1,
+                 sparse_desc_groups=False, split_desc_chunks=0,
+                 min_chunk_cost=0, hint_history=1, desc_vbins="packed",
+                 extrema_impl="xla")
 # BASELINE config 4: registration of the 192^3 pair, two configurations.
 REG_GOLDEN = ROOT / "tests" / "data" / "torch_golden_register192.npz"
 REG_CONFIGS = {"default": {}, "refined": {"refine_subvoxel": True}}
@@ -211,7 +242,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         die("no CUDA device: this smoke test runs the port on a GPU")
     needed = [ROOT / "sift3d_tpu_torch", ROOT / "bench.py",
-              *GOLDENS.values(), REG_GOLDEN, BATCH_GOLDEN]
+              *GOLDENS.values(), FUNNEL_GOLDEN, REG_GOLDEN, BATCH_GOLDEN]
     missing = [str(p.relative_to(ROOT)) for p in needed if not p.exists()]
     if missing:
         die(f"run from a checkout of the repository (missing {missing})")
@@ -1290,6 +1321,106 @@ def main() -> int:
               f"of {d1.shape[0]} descriptors read NaN, the rest bit-equal",
               flush=True)
 
+    def same_bits(a, b):
+        """Two runs' (keypoints, descriptors, funnel) equal bit for bit."""
+        (ka, da, fa), (kb, db, fb) = a, b
+        for f in ("coords", "octave", "level", "sd", "strength", "R"):
+            assert np.array_equal(getattr(ka, f), getattr(kb, f)), f
+        for f in ("data", "xyz", "sd"):
+            assert np.array_equal(getattr(da, f), getattr(db, f)), f
+        assert fa == fb
+
+    def check_funnel(cell, det, kp, gold):
+        """The detector's funnel against JAX's, count for count and in
+        JAX's order; survivors sum to the keypoint count."""
+        ref = gold[cell]
+        _, size, units, _, ext = CELLS[cell]
+        assert (ref["size"], tuple(ref["units"]), ref["extensions"]) == \
+            (size, units, ext), ref
+        want = {(o, lv): f for o, lv, f in ref["funnel"]}
+        assert list(det._funnel) == list(want), (det._funnel, want)
+        assert det._funnel == want, (det._funnel, want)
+        surv = sum(f["survivors"] for f in det._funnel.values())
+        assert surv == len(kp) == ref["num_keypoints"], \
+            (surv, len(kp), ref["num_keypoints"])
+        tot = {k: sum(f[k] for f in det._funnel.values())
+               for k in next(iter(want.values()))}
+        print(f"       funnel {cell}: {len(want)} (octave, level) rows equal "
+              f"to JAX's; totals {tot}", flush=True)
+
+    def spans_hold_kernels(trace_dir):
+        """Both spans are in the trace, and every launch of the five
+        kernels lies inside one of them (the host span, or its image on
+        the card's timeline)."""
+        import re
+        files = list(Path(trace_dir).glob("*.pt.trace.json"))
+        assert len(files) == 1, files
+        events = json.loads(files[0].read_text())["traceEvents"]
+        spans = [e for e in events if e.get("name") in ("detect", "describe")
+                 and e.get("ph") == "X"]
+        names = {e["name"] for e in spans
+                 if e.get("cat") == "user_annotation"}
+        assert names == {"detect", "describe"}, names
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        counts = {}
+        for entry, fn in PATH_KERNELS.items():
+            pat = re.compile(rf"(?<!\w){fn}(?!\w)")
+            mine = [k for k in kernels if pat.search(k["name"])]
+            inside = [k for k in mine if any(
+                s_["ts"] <= k["ts"]
+                and k["ts"] + k["dur"] <= s_["ts"] + s_["dur"]
+                for s_ in spans)]
+            counts[entry] = (len(inside), len(mine))
+            assert mine and len(inside) == len(mine), (entry, counts[entry])
+        return counts, files[0].stat().st_size
+
+    def profiling_phase():
+        from sift3d_tpu_torch import profiling
+        gold = json.loads(FUNNEL_GOLDEN.read_text())
+        times = profiling.StageTimes()
+        runs = {}
+        for cell, (_, _, units, _, ext) in CELLS.items():
+            det = st.SIFT3D(st.DetectorParams(**ext), device="cuda")
+            vol = st.Volume.from_array(vols[cell], units)
+            reset_counters()
+            kp = det.detect_keypoints(vol)
+            desc = det.extract_descriptors(kp)
+            launches = read_counters(det.params, f"outside spans, {cell}")
+            check_funnel(cell, det, kp, gold)
+            runs[cell] = (kp, desc, dict(det._funnel)), launches
+            if cell not in TRACED_CELLS:
+                continue
+            with tempfile.TemporaryDirectory() as tmp:
+                reset_counters()
+                res = {}
+                with profiling.trace(tmp, det.device):
+                    with times.stage("detect", sync=res):
+                        res["kp"] = det.detect_keypoints(vol)
+                    with times.stage("describe", sync=res):
+                        res["desc"] = det.extract_descriptors(res["kp"])
+                traced = read_counters(det.params, f"inside spans, {cell}")
+                counts, nbytes = spans_hold_kernels(tmp)
+            same_bits(runs[cell][0], (res["kp"], res["desc"], det._funnel))
+            assert traced == launches, (traced, launches)
+            print(f"       {cell} inside spans and a trace ({nbytes} bytes): "
+                  f"rows, descriptors and funnel bit-equal to the run "
+                  f"outside, launches equal; kernel launches inside a span "
+                  f"/ in the trace: {counts}", flush=True)
+        print("\n".join("       " + line
+                        for line in times.report().splitlines()), flush=True)
+        # Every execution knob at a value other than its default.
+        cell = "sparse256"
+        det = st.SIFT3D(st.DetectorParams(**ALL_KNOBS), device="cuda")
+        reset_counters()
+        kp = det.detect_keypoints(st.Volume.from_array(vols[cell],
+                                                       CELLS[cell][2]))
+        desc = det.extract_descriptors(kp)
+        launches = read_counters(det.params, f"every knob, {cell}")
+        same_bits(runs[cell][0], (kp, desc, det._funnel))
+        assert launches == runs[cell][1], (launches, runs[cell][1])
+        print(f"       {cell} with every knob off its default ({ALL_KNOBS}): "
+              f"bit-equal to the default run, same launches", flush=True)
+
     def sharded_path(cell):
         """ShardedSIFT3D on SHARDS shards of the card: the cell's golden at
         its bars (check_golden) and the single-device port's rows and
@@ -1538,6 +1669,9 @@ def main() -> int:
     for cell in CELLS:
         s.phase(f"main path: detect + describe, {cell}, vs JAX golden",
                 lambda cell=cell: main_path(cell))
+    s.phase("profiling and funnel on the main path: spans around the five "
+            "kernels, funnels vs JAX golden, every knob bit-equal",
+            profiling_phase)
     for cell in SHARDED_CELLS:
         s.phase(f"ShardedSIFT3D on {SHARDS} shards, {cell}, vs JAX golden "
                 f"and the single-device port (bit-equal)",

@@ -65,12 +65,15 @@ class Orientation(NamedTuple):
     A: torch.Tensor              # f32[K, 3, 3] structure tensor
     vd: torch.Tensor             # f32[K, 3] weighted gradient sum
     R: torch.Tensor              # f32[K, 3, 3]
-    accepted: torch.Tensor       # bool[K]
-    # Raw stage predicates, in the reference's short-circuit order
-    # (grad -> ratio -> corner, sift.c:996-1102).
-    reject_grad: torch.Tensor    # bool[K]
-    reject_ratio: torch.Tensor   # bool[K]
-    reject_corner: torch.Tensor  # bool[K]
+    # accepted and the raw stage predicates in the reference's
+    # short-circuit order (grad -> ratio -> corner, sift.c:996-1102), one
+    # block as the kernel writes it; each is a column below.
+    flags: torch.Tensor          # bool[K, 4]
+
+    accepted = property(lambda self: self.flags[:, 0])
+    reject_grad = property(lambda self: self.flags[:, 1])
+    reject_ratio = property(lambda self: self.flags[:, 2])
+    reject_corner = property(lambda self: self.flags[:, 3])
 
 
 def _moments_chunk(levels, lvl, anchors, fp, units, sig_fctr, rad_fctr,
@@ -244,8 +247,8 @@ def _epilogue(A, vd, params) -> Orientation:
     reject_corner = corner < np.float32(params.corner_thresh)
 
     accepted = ~reject_grad & ~reject_ratio & ~reject_corner
-    return Orientation(A, vd, R, accepted, reject_grad, reject_ratio,
-                       reject_corner)
+    return Orientation(A, vd, R, torch.stack(
+        [accepted, reject_grad, reject_ratio, reject_corner], dim=1))
 
 
 def orient_plain(levels: torch.Tensor, lvl: torch.Tensor,
@@ -317,4 +320,4 @@ def orient(levels: torch.Tensor, lvl: torch.Tensor, anchors: torch.Tensor,
                     _build.stream_ptr(levels))
         launches += 1
     return Orientation(moments[:, :9].reshape(K, 3, 3), moments[:, 9:], R,
-                       *flags.unbind(dim=1))
+                       flags)

@@ -24,18 +24,20 @@ from typing import NamedTuple
 import torch
 
 from .ops.ori_kernel import eigh3x3_plain as eigh3x3  # noqa: F401
-from .ops.ori_kernel import orient
+from .ops.ori_kernel import Orientation, orient
 from .params import DetectorParams
 
 
 class OrientationResult(NamedTuple):
     R: torch.Tensor              # f32[K, 3, 3]
-    accepted: torch.Tensor       # bool[K]
-    # Raw stage predicates, in the reference's short-circuit order
-    # (grad -> ratio -> corner, sift.c:996-1102).
-    reject_grad: torch.Tensor    # bool[K]
-    reject_ratio: torch.Tensor   # bool[K]
-    reject_corner: torch.Tensor  # bool[K]
+    # accepted and the raw stage predicates (grad -> ratio -> corner,
+    # sift.c:996-1102), as ops.ori_kernel.Orientation holds them.
+    flags: torch.Tensor          # bool[K, 4]
+
+    accepted = Orientation.accepted
+    reject_grad = Orientation.reject_grad
+    reject_ratio = Orientation.reject_ratio
+    reject_corner = Orientation.reject_corner
 
 
 def assign_orientations(levels: torch.Tensor, lvl: torch.Tensor,
@@ -57,5 +59,4 @@ def assign_orientations(levels: torch.Tensor, lvl: torch.Tensor,
     o = orient(levels, lvl, coords, sd, units, params, centers=centers,
                sd_max=sd_max, fractional=fractional, z_origin=z_origin,
                global_nz=global_nz)
-    return OrientationResult(o.R, o.accepted, o.reject_grad, o.reject_ratio,
-                             o.reject_corner)
+    return OrientationResult(o.R, o.flags)

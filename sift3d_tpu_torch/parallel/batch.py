@@ -50,6 +50,11 @@ class MeshBatchSIFT3D:
             a += n
         return out
 
+    @property
+    def _funnel(self) -> dict | None:
+        """The last volume's funnel, as SIFT3D's after a batch."""
+        return self._shares[-1][0]._funnel if self._shares else None
+
     def extract_descriptors_batch(self, kps):
         """Descriptors of the keypoint lists of the last
         detect_keypoints_batch, each share on its device."""

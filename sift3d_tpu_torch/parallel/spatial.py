@@ -52,7 +52,7 @@ from ..keypoints import Descriptors, Keypoints
 from ..ops.blur_kernel import _diags, blur_x, chain_octave
 from ..ops.desc_kernel import level_radius
 from ..params import DESC_NUMEL, DetectorParams
-from ..pipeline import SIFT3D, SlabView
+from ..pipeline import COL_LEVEL, COLS_R, SIFT3D, SlabView
 from ..pyramid import PyramidPlan, make_plan, scale_to_unit
 from ..volume import Volume, as_volume
 from ..windows import window_extent
@@ -270,10 +270,10 @@ class ShardedSIFT3D:
                         plan, o, sl.gpyr[None], dogs[s][None],
                         dogmax.to(sl.device)[None], view)
                     if rows is not None:
-                        # R (columns 5-13) reads NaN only where the
-                        # orientation kernel found a window outside the
-                        # slab: a halo too thin.
-                        if np.isnan(rows[:, 5:14]).any():
+                        # R reads NaN only where the orientation kernel
+                        # found a window outside the slab: a halo too
+                        # thin.
+                        if np.isnan(rows[:, COLS_R]).any():
                             raise ValueError(
                                 f"octave {o}, shard {s}: an orientation "
                                 f"window leaves the slab (halo {g})")
@@ -285,12 +285,14 @@ class ShardedSIFT3D:
             if blocks:
                 rows = np.concatenate(blocks)
                 # Shard-major within each level: the global scan order.
-                order = np.argsort(rows[:, -1], kind="stable")
+                order = np.argsort(rows[:, COL_LEVEL], kind="stable")
                 parts.append((o, 0, 1, rows[order]))
         self._plan, self._octaves, self._shard_flags = plan, octaves, flags
         self._input_shape = tuple(int(d) for d in vol.shape)
         det = self._dets[self.devices[0]]
-        return det._keypoints(plan, parts, 1)[0]
+        # JAX's ShardedSIFT3D keeps no funnel (sift3d_tpu/parallel/
+        # spatial.py), nor does this one.
+        return det._keypoints(plan, parts, 1)[0][0]
 
     def extract_descriptors(self, kp: Keypoints) -> Descriptors:
         """Descriptors of the keypoints of the last detect_keypoints: each

@@ -23,6 +23,16 @@ batch is split into sub-batches whose transient buffers fit MEM_SHARE of
 the card's free memory beside the batch's pyramid, which is kept for the
 descriptors (SUB_BATCH forces a size).
 
+Detection also leaves a funnel in SIFT3D._funnel, as the JAX package's
+SIFT3D does (sift3d_tpu/pipeline.py:1587-1600; profiling.detect_stats
+reads it): per (octave, keypoint level), the candidates, the rejections
+of the orientation stage in the reference's short-circuit order (weak
+gradient, eigenvalue ratio, corner; sift.c:996-1102) and the survivors.
+Candidates that the edge test drops count as candidates and survivors
+of no stage. The predicates come home in the octave's one host copy;
+the counts are taken from those rows when _funnel is first read, not on
+the detection's path. After a batch the funnel is the last volume's.
+
 Reference quirk replicated by default: the reference's compaction copies
 every keypoint field EXCEPT strength (copy_Keypoint, sift.c:372-384), so
 surviving keypoint j inherits the strength of the j-th candidate in scan
@@ -55,6 +65,18 @@ MEM_SHARE = 0.5
 # CPU: the whole batch).
 SUB_BATCH: int | None = None
 
+# Columns of _octave's host rows: coordinates or refined centers (0-2),
+# strength (3), accepted (4), the three reject predicates (5-7), R (8-16),
+# the refined scale (17, with an extension on) and the level (last).
+COL_ACCEPTED = 4
+COLS_REJECT = slice(5, 8)
+COLS_R = slice(8, 17)
+COL_SD = 17
+COL_LEVEL = -1
+# The funnel's counts per (octave, level), in JAX's order.
+FUNNEL_COUNTS = ("candidates", "reject_grad", "reject_ratio",
+                 "reject_corner", "survivors")
+
 
 def _as_batch(vols) -> torch.Tensor:
     """f32[B, nx, ny, nz] (where it lies) from an array, a tensor, or a
@@ -82,6 +104,22 @@ class SlabView(NamedTuple):
     nz: int
 
 
+def _count_funnel(rows, octave, level) -> dict:
+    """{(octave, level): counts} of one volume's candidate rows (_octave),
+    counted as sift3d_tpu/pipeline.py:1589-1600 counts them: a ratio
+    rejection is one the gradient test let through, a corner rejection
+    one both let through. One bincount a count, whatever the levels."""
+    g, r, c = (rows[:, COLS_REJECT] != 0).T
+    span = int(level.max(initial=0)) + 1
+    keys, inv = np.unique(octave.astype(np.int64) * span + level,
+                          return_inverse=True)
+    counts = np.stack([np.bincount(inv[m], minlength=len(keys)) for m in (
+        slice(None), g, ~g & r, ~g & ~r & c, rows[:, COL_ACCEPTED] != 0)],
+        axis=1).tolist()
+    return {(k // span, k % span): dict(zip(FUNNEL_COUNTS, n))
+            for k, n in zip(keys.tolist(), counts)}
+
+
 class SIFT3D:
     """SIFT3D detector + descriptor extractor on one torch device.
 
@@ -102,6 +140,10 @@ class SIFT3D:
         self._plan: PyramidPlan | None = None
         self._gpyr: list[torch.Tensor] | None = None
         self._input_shape: tuple[int, int, int] | None = None
+        # The last detection's funnel (the _funnel property), and the host
+        # rows it is counted from until it is first read.
+        self._funnel_counts: dict | None = None
+        self._funnel_rows = None
         self.sub_batch = 0   # volumes per sub-batch of the last detection
 
     # -- detection ----------------------------------------------------------
@@ -159,7 +201,20 @@ class SIFT3D:
             del dogs, dogmax
         self._plan, self._gpyr = plan, gpyr
         self._input_shape = tuple(int(d) for d in data.shape[1:])
-        return self._keypoints(plan, parts, B)
+        kps, self._funnel_rows = self._keypoints(plan, parts, B)
+        self._funnel_counts = {}
+        return kps
+
+    @property
+    def _funnel(self) -> dict | None:
+        """Per-(octave, level) rejection funnel of the last detection
+        (profiling.detect_stats renders it): {(octave, level):
+        {name: count for name in FUNNEL_COUNTS}}, None before one."""
+        if self._funnel_rows is not None:
+            rows, octave, level = self._funnel_rows
+            self._funnel_counts = _count_funnel(rows, octave, level)
+            self._funnel_rows = None
+        return self._funnel_counts
 
     def load_pyramid(self, gpyr_octaves, input_shape, units) -> None:
         """Install a Gaussian pyramid computed elsewhere (one
@@ -182,10 +237,12 @@ class SIFT3D:
         """Candidates of octave o of a (sub-)batch, volume-major and in
         each volume level -> z, y, x order, their refinement when an
         extension is on, their orientations: one host copy of their rows
-        (None without candidates). Columns: coordinates or refined
-        centers (3), strength, accepted, R (9), the refined scale (with an
-        extension on), and last the level: of one volume, its keypoint
-        level; of a batch, the level in the sub-batch's stack.
+        (None without candidates). Columns (COL_*): coordinates or
+        refined centers (3), strength, accepted, the orientation's
+        weak-gradient, ratio and corner predicates (none set where the
+        edge test rejects, as JAX masks them), R (9), the refined scale
+        (with an extension on), and last the level: of one volume, its
+        keypoint level; of a batch, the level in the sub-batch's stack.
 
         Refined (sift3d_tpu/pipeline.py:1549-1562): center = coords +
         offset, sd = scale[level + 1] * 2^(ds / nl), and the edge test's
@@ -238,34 +295,37 @@ class SIFT3D:
                                   plan.level_units(o), params,
                                   centers=centers, sd_max=sd_max,
                                   fractional=ext, **zkw)
-        accepted = ori.accepted & ref.edge_ok if ext else ori.accepted
+        # accepted and the three predicates, masked by the edge test's
+        # verdict as sift3d_tpu/orientation.py:286-289 masks them.
+        flags = ori.flags & ref.edge_ok[:, None] if ext else ori.flags
         K = cand.level.numel()
         # Every column in f32 (exact for these values: coordinates and
         # stack levels are below 2^24), one copy.
         return torch.cat(
             [centers if ext else cand.coords.to(torch.float32),
-             cand.strength[:, None], accepted.to(torch.float32)[:, None],
+             cand.strength[:, None], flags.to(torch.float32),
              ori.R.reshape(K, 9)] + ([sd[:, None]] if ext else [])
             + [lvl.to(torch.float32)[:, None]], dim=1).cpu().numpy()
 
-    def _keypoints(self, plan, parts, B) -> list[Keypoints]:
+    def _keypoints(self, plan, parts, B) -> tuple[list[Keypoints], tuple]:
         """Each volume's survivors, in candidate order, from the octaves'
-        host rows (_octave), decoded at once. The stale-strength column
-        is the volume's own: survivor j takes the strength of the volume's
-        j-th candidate."""
+        host rows (_octave), decoded at once, and the last volume's rows,
+        octaves and levels for its funnel (None without candidates). The
+        stale-strength column is the volume's own: survivor j takes the
+        strength of the volume's j-th candidate."""
         if not parts:
-            return [Keypoints.empty() for _ in range(B)]
+            return [Keypoints.empty() for _ in range(B)], None
         L = plan.num_gpyr_levels
         ext = self.params.extensions
         rows = np.concatenate([p for *_, p in parts])
         n = [len(p) for *_, p in parts]
         octave = np.repeat(np.array([o for o, *_ in parts], np.int32), n)
-        v = rows[:, -1].astype(np.int32)
+        v = rows[:, COL_LEVEL].astype(np.int32)
         batched = np.repeat([S > 1 for _, _, S, _ in parts], n)
         vol = np.repeat([s for _, s, _, _ in parts], n) \
             + np.where(batched, v // L, 0)
         level = np.where(batched, v % L - 1, v)
-        sd = (rows[:, 14].astype(np.float64) if ext else
+        sd = (rows[:, COL_SD].astype(np.float64) if ext else
               np.asarray(plan.scales, np.float64)[octave, level + 1])
         stale = self.stale_strength_compat and not ext
         out = []
@@ -274,14 +334,17 @@ class SIFT3D:
             if not len(mine):
                 out.append(Keypoints.empty())
                 continue
-            idx = mine[rows[mine, 4] != 0]
+            idx = mine[rows[mine, COL_ACCEPTED] != 0]
             strength = rows[mine if stale else idx, 3].astype(np.float64)
             out.append(Keypoints(
                 coords=rows[idx, :3].astype(np.float64), octave=octave[idx],
                 level=level[idx], sd=sd[idx],
                 strength=strength[:len(idx)] if stale else strength,
-                R=rows[idx, 5:14].reshape(-1, 3, 3)))
-        return out
+                R=rows[idx, COLS_R].reshape(-1, 3, 3)))
+        if B > 1:
+            last = vol == B - 1
+            rows, octave, level = rows[last], octave[last], level[last]
+        return out, (rows, octave, level) if len(rows) else None
 
     # -- descriptors --------------------------------------------------------
 

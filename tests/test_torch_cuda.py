@@ -660,3 +660,45 @@ def test_sharded_sift3d_on_card(dev, ext):
     for a, b, c, d in zip(kps, got, dss, gds):
         assert np.array_equal(a.coords, b.coords) and \
             np.array_equal(a.R, b.R) and np.array_equal(c.data, d.data)
+
+
+@pytest.mark.parametrize("ext", [{}, {"refine_subvoxel": True,
+                                      "edge_thresh": 10.0}],
+                         ids=["default", "refined"])
+def test_funnel_on_card_equals_cpu(dev, ext):
+    """The detection funnel on the card equals the plain versions' on the
+    CPU, count for count, for a 64^3 phantom."""
+    import sift3d_tpu_torch as st
+    from sift3d_tpu_torch.phantoms import bench_volume
+    vol = bench_volume("dense", 64, dev)
+    p = st.DetectorParams(**ext)
+    card, cpu = st.SIFT3D(p, dev), st.SIFT3D(p, "cpu")
+    kp = card.detect_keypoints(vol)
+    ref = cpu.detect_keypoints(vol.cpu())
+    assert len(kp) == len(ref) > 5
+    assert card._funnel and card._funnel == cpu._funnel
+    assert list(card._funnel) == list(cpu._funnel)
+    assert sum(f["survivors"] for f in card._funnel.values()) == len(kp)
+
+
+def test_stage_sync_waits_for_the_card(dev):
+    """A stage whose sync holds a CUDA result measures at least the
+    device time of the kernels that made it."""
+    from sift3d_tpu_torch import profiling
+    a = torch.randn(4096, 4096, device=dev) / 64.0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = profiling.StageTimes()
+    out = []
+    with times.stage("matmuls", sync=out):
+        start.record()
+        x = a
+        for _ in range(5):
+            x = x @ a
+        out.append(x)
+        end.record()
+    end.synchronize()
+    device_ms = start.elapsed_time(end)
+    assert device_ms > 1.0
+    assert times.times["matmuls"] * 1e3 >= device_ms

@@ -16,6 +16,7 @@ _PROBE = """
 import sys
 import sift3d_tpu_torch
 import sift3d_tpu_torch.cli, sift3d_tpu_torch.io
+import sift3d_tpu_torch.profiling
 import sift3d_tpu_torch.refinement, sift3d_tpu_torch.registration
 import sift3d_tpu_torch.io.loader
 import sift3d_tpu_torch.parallel
@@ -95,12 +96,13 @@ def test_wrappers_use_plain_version_only_on_cpu(mod, fn, args):
 @pytest.mark.parametrize("mod", ["refinement", "registration", "pipeline",
                                  "io/loader", "native", "parallel/__init__",
                                  "parallel/batch", "parallel/mesh",
-                                 "parallel/halo", "parallel/spatial"])
+                                 "parallel/halo", "parallel/spatial",
+                                 "profiling"])
 def test_new_modules_import_torch_and_no_jax(mod):
     """refinement.py, registration.py, the batch pipeline, the loader, the
-    native runtime's bindings and the parallel package name nothing of jax
-    or of the JAX package in their imports (the bindings, and
-    parallel/__init__ and parallel/batch, which import the package's
+    native runtime's bindings, the parallel package and profiling.py name
+    nothing of jax or of the JAX package in their imports (the bindings,
+    and parallel/__init__ and parallel/batch, which import the package's
     modules only, name no torch)."""
     import ast
     tree = ast.parse((REPO / "sift3d_tpu_torch" / f"{mod}.py").read_text())

@@ -38,6 +38,13 @@ truth), idx{b}, JAX's RANSAC hypothesis indices for the pair
 is fed to reproduce JAX's inliers), and moving_sample{b}, the moving
 volume every 7th voxel along each axis.
 
+--funnel writes tests/data/torch_golden_funnel.json instead: the JAX
+SIFT3D's detection funnel (SIFT3D._funnel: per octave and keypoint level
+the candidates, the weak-gradient, eigenvalue-ratio and corner
+rejections and the survivors) and keypoint count of each main-path cell
+of chip_smoke.py (FUNNEL_CELLS: sparse256, dense256, sparse192, aniso128
+and refine128), in the goldens' program order.
+
 XLA:CPU contracts the blur's multiply-then-add chain (pyramid._diag_pass)
 into fused multiply-adds under jit on CPUs with FMA, which moves the
 pyramid by ulps away from the eager (and the port's) arithmetic. The
@@ -48,7 +55,7 @@ Usage: python tools/torch_golden.py [--dense] [--size N] [--units X,Y,Z]
                                     [--refine] [--edge-thresh R]
                                     [--register N]
                                     [--register-batch N --pairs P]
-                                    [--out PATH]
+                                    [--funnel] [--out PATH]
 """
 
 from __future__ import annotations
@@ -66,6 +73,14 @@ sys.path.insert(0, str(REPO))
 
 # Every 7th voxel along each axis of a registration golden's moving volume.
 MOVING_STRIDE = 7
+# chip_smoke.py's main-path cells: (phantom, size, voxel units, extensions).
+FUNNEL_CELLS = {
+    "sparse256": ("sparse", 256, (1.0, 1.0, 1.0), {}),
+    "dense256": ("dense", 256, (1.0, 1.0, 1.0), {}),
+    "sparse192": ("sparse", 192, (1.0, 1.0, 1.0), {}),
+    "aniso128": ("sparse", 128, (1.0, 1.0, 2.5), {}),
+    "refine128": ("sparse", 128, (1.0, 1.0, 1.0),
+                  {"refine_subvoxel": True, "edge_thresh": 10.0})}
 
 
 def f64_sum_R(levels, lvl, coords, sd, units, params, sd_max: float,
@@ -168,6 +183,36 @@ def register_batch_golden(n: int, pairs: int, out: Path) -> None:
     print(f"-> {out} ({out.stat().st_size} bytes)")
 
 
+def funnel_golden(out: Path) -> None:
+    """The detection funnels of FUNNEL_CELLS (see the module notes)."""
+    import json
+    from bench import make_bench_volume, make_dense_volume
+    from sift3d_tpu import DetectorParams, SIFT3D
+    from sift3d_tpu.volume import Volume
+    make = {"sparse": make_bench_volume, "dense": make_dense_volume}
+    cells = {}
+    for cell, (kind, size, units, ext) in FUNNEL_CELLS.items():
+        params = DetectorParams(gpyr_impl="incremental", extrema_impl="xla",
+                                **ext)
+        det = SIFT3D(params)
+        t0 = time.perf_counter()
+        kp = det.detect_keypoints(Volume.from_array(make[kind](size),
+                                                    units=units))
+        dt = time.perf_counter() - t0
+        cells[cell] = dict(
+            phantom=kind, size=size, units=list(units), extensions=ext,
+            num_keypoints=len(kp),
+            funnel=[[o, s, f] for (o, s), f in det._funnel.items()])
+        print(f"{cell}: {len(kp)} keypoints, "
+              f"{sum(f['candidates'] for f in det._funnel.values())} "
+              f"candidates, JAX CPU {dt:.1f} s", flush=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # One line a cell.
+    out.write_text("{\n" + ",\n".join(f"{json.dumps(c)}: {json.dumps(v)}"
+                                      for c, v in cells.items()) + "\n}\n")
+    print(f"-> {out} ({out.stat().st_size} bytes)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dense", action="store_true")
@@ -184,6 +229,8 @@ def main(argv=None) -> int:
                     help="the batch registration golden of --pairs N^3 "
                          "pairs")
     ap.add_argument("--pairs", type=int, default=4)
+    ap.add_argument("--funnel", action="store_true",
+                    help="the detection funnels of the main-path cells")
     ap.add_argument("--out", type=Path, help="write here instead")
     args = ap.parse_args(argv)
     units = args.units
@@ -196,11 +243,15 @@ def main(argv=None) -> int:
     if args.register_batch:
         cell, suffix = "batch", f"{args.register_batch}x{args.pairs}"
     out = args.out or (REPO / "tests" / "data"
-                       / f"torch_golden_{cell}{suffix}.npz")
+                       / ("torch_golden_funnel.json" if args.funnel
+                          else f"torch_golden_{cell}{suffix}.npz"))
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_cpu_max_isa=SSE4_2").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
+    if args.funnel:
+        funnel_golden(out)
+        return 0
     if args.register or args.register_batch:
         sys.path.insert(0, str(REPO / "tools"))
         if args.register_batch:

@@ -9,8 +9,12 @@ extract_descriptors_batch on B such phantoms (the bench one and B - 1
 drawn from seeds 101, 102, ...), and prints, per volume or per batch:
  - the wall time of detect and of describe, each ending in a device sync
    (median of --repeats runs, default 7, after a warm-up, with the spread
-   between the quartiles); the input comes from host memory, or with
-   --on-card from a tensor already on the card (no upload);
+   between the quartiles), and the same runs' profiling.StageTimes report
+   (each stage a torch.profiler span); the input comes from host memory,
+   or with --on-card from a tensor already on the card (no upload);
+ - the detection funnel (profiling.format_funnel: candidates, rejections
+   by stage and survivors per octave and level; of the last volume for a
+   batch);
  - from torch.profiler over one more run: device time by kernel, its sum,
    and that sum as a share of the profiled wall time (the device's busy
    share; the rest is host time with the device idle), and the number of
@@ -78,6 +82,7 @@ def main(argv=None) -> int:
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
     import sift3d_tpu_torch as st
+    from sift3d_tpu_torch import profiling
     from sift3d_tpu_torch.phantoms import bench_volume
 
     card = subprocess.run(
@@ -105,18 +110,22 @@ def main(argv=None) -> int:
     else:
         detect, describe = det.detect_keypoints, det.extract_descriptors
 
-    def run():
+    def run(stages=None):
+        stages = stages or profiling.StageTimes()
         t0 = time.perf_counter()
-        kp = detect(vol)
-        torch.cuda.synchronize()
+        with stages.stage("detect"):
+            kp = detect(vol)
+            torch.cuda.synchronize()
         t1 = time.perf_counter()
-        describe(kp)
-        torch.cuda.synchronize()
+        with stages.stage("describe"):
+            describe(kp)
+            torch.cuda.synchronize()
         n = sum(len(k) for k in kp) if args.batch else len(kp)
         return n, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
 
     run()
-    runs = [run() for _ in range(args.repeats)]
+    times = profiling.StageTimes()
+    runs = [run(times) for _ in range(args.repeats)]
     n_kp = runs[0][0]
     det_ms = statistics.median(r[1] for r in runs)
     desc_ms = statistics.median(r[2] for r in runs)
@@ -127,6 +136,15 @@ def main(argv=None) -> int:
     print(f"  wall median over {args.repeats}: detect {det_ms:.2f} ms, "
           f"describe {desc_ms:.2f} ms, total {statistics.median(tot):.2f} "
           f"ms (quartiles {q1:.2f}-{q3:.2f})")
+    print(f"  StageTimes over the {args.repeats} runs:")
+    print("\n".join("    " + line for line in times.report().splitlines()))
+
+    kp = detect(vol)
+    print("  detection funnel" + (" (the batch's last volume)"
+                                  if args.batch else "") + ":")
+    print("\n".join("    " + line for line in profiling.format_funnel(
+        profiling.detect_stats(det, kp[-1] if args.batch else kp))
+        .splitlines()))
 
     kp = detect(vol)
     torch.cuda.synchronize()
@@ -144,8 +162,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t0) * 1e3
+    # The stage spans have an image on the card's timeline: not device work.
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+              and e.key not in times.times]
     events.sort(key=_device_us, reverse=True)
     busy = sum(_device_us(e) for e in events) / 1e3
     launches = sum(e.count for e in events)
