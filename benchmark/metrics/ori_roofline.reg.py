@@ -1,0 +1,13 @@
+"""ori_roofline.reg: share of its roofline that the orientation layer (the
+orientation of every candidate) reached over the traced calls of the
+registration cells, in percent: the least time of its work
+(_roofline.py) over the summed device time of its kernels."""
+
+from benchmark.metrics import _roofline
+
+LAYER = "orientation"
+KERNELS = ("ori_kernel",)
+
+
+def read(run):
+    return _roofline.share(run, LAYER, KERNELS)

@@ -1,0 +1,11 @@
+"""reg_call_p95_ms: the 95th percentile (linear between ranks) of the
+latency of every call of the measured window, each the registration of
+one batch of pairs with its affines on the host, in ms (host clock)."""
+
+import numpy as np
+
+
+def read(run):
+    if not run.calls:
+        return None
+    return float(np.percentile([t for t, _ in run.calls], 95)) * 1e3
