@@ -254,7 +254,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     import bench
-    from sift3d_tpu_torch import native, registration
+    from sift3d_tpu_torch import native, profiling, registration
     from sift3d_tpu_torch.detect import detect_extrema_octave
     from sift3d_tpu_torch.io import BatchVolumeLoader, write_volume
     from sift3d_tpu_torch.io.loader import _read_batch
@@ -282,9 +282,15 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     _build.lib()
+    def n_launches(kernel):
+        """Launches of s3d_<kernel> so far (the recorder's counter)."""
+        return profiling.counter("launch.s3d_" + kernel)
+
+    nvcc_ns = profiling.read()["spans"].get("sift3d.kernels.build", [0, 0])[1]
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds:.1f} s) -> {_build.BUILD_DIR}",
-          flush=True)
+          f"(nvcc {nvcc_ns * 1e-9:.1f} s, "
+          f"{profiling.counter('kernels.builds')} build(s)) -> "
+          f"{_build.BUILD_DIR}", flush=True)
     t0 = time.perf_counter()
     native.lib()
     print(f"native IO runtime {time.perf_counter() - t0:.1f} s -> "
@@ -387,8 +393,8 @@ def main() -> int:
               f"diff {lib_err:.3g}", flush=True)
         assert lib_err <= 1e-6
         # Per kernel: the mean over the six levels of octave 0.
-        for key, counter, lib in (("blur_x", bk.blur_x_launches, lib_ms),
-                                  ("blur_yz_dog", bk.blur_yz_dog_launches,
+        for key, counter, lib in (("blur_x", n_launches("blur_x"), lib_ms),
+                                  ("blur_yz_dog", n_launches("blur_yz_dog"),
                                    None)):
             nbytes, ops, ms, pms = sums[key]
             s.record(key, "sift3d_tpu_torch/csrc/blur.cu",
@@ -405,9 +411,9 @@ def main() -> int:
             rk = torch.sort(rk).values
             found[cuboid] = rk.numel()
             for cap in (None, 1):   # 1: too small, so the kernel runs again
-                n0 = ek.launches
+                n0 = n_launches("extrema_candidates")
                 keys, counts = ek.extrema_candidates(dog, thr, cuboid, cap)
-                runs = ek.launches - n0
+                runs = n_launches("extrema_candidates") - n0
                 assert runs == (2 if cap == 1 and rk.numel() > 1 else 1)
                 assert torch.equal(torch.sort(keys).values, rk), (cuboid, cap)
                 assert torch.equal(counts, rc), (cuboid, cap)
@@ -450,9 +456,9 @@ def main() -> int:
               f"the threshold", flush=True)
         s.record("extrema_candidates", "sift3d_tpu_torch/csrc/extrema.cu",
                  "sift3d_tpu/ops/extrema_kernel.py:384", 0.0, ms, pms,
-                 ek.launches, bound(4 * cen.numel() + 4 * outer
-                                    + 8 * found[False] + 8 * (1 + nl),
-                                    2 * cen.numel() + 16 * passing))
+                 n_launches("extrema_candidates"),
+                 bound(4 * cen.numel() + 4 * outer + 8 * found[False]
+                       + 8 * (1 + nl), 2 * cen.numel() + 16 * passing))
 
     def box_voxels(coords, sd, sig_fctr, rad_fctr, units, dims):
         """Per keypoint, the voxels of its loop-bound box and of its
@@ -506,7 +512,8 @@ def main() -> int:
                  "sift3d_tpu/ops/ori_kernel.py:167",
                  max(float((got.A - ref.A).abs().max()),
                      float((got.vd - ref.vd).abs().max()), rerr), ms, pms,
-                 ok.launches, bound(4 * box + 76 * K, 11 * box + 40 * sphere))
+                 n_launches("orient"),
+                 bound(4 * box + 76 * K, 11 * box + 40 * sphere))
         return got, acc
 
     def ori_phase():
@@ -554,9 +561,9 @@ def main() -> int:
         H = H.contiguous()
         A = torch.cat([st_["A"], H, torch.from_numpy(np.concatenate(
             [np.einsum("kij,klj->kil", M, M), special])).to(dev)])
-        n0 = ok.eigh_launches
+        n0 = n_launches("eigh3x3")
         w, V = ok.eigh3x3(A)
-        assert ok.eigh_launches == n0 + 1
+        assert n_launches("eigh3x3") == n0 + 1
         wr, Vr = ok.eigh3x3_plain(A)
 
         def bits_equal(a, b):
@@ -580,7 +587,7 @@ def main() -> int:
               flush=True)
         s.record("eigh3x3", "sift3d_tpu_torch/csrc/ori.cu",
                  "sift3d_tpu/orientation.py:110", 0.0, ms, pms,
-                 ok.eigh_launches, bound(84 * K, EIGH_OPS * K), lms)
+                 n_launches("eigh3x3"), bound(84 * K, EIGH_OPS * K), lms)
 
     def desc_check(name, lvl, centers, R, sd, sd_max, fractional,
                    levels=None):
@@ -617,7 +624,7 @@ def main() -> int:
         s.record(name, "sift3d_tpu_torch/csrc/desc.cu",
                  "sift3d_tpu/ops/desc_kernel.py:304",
                  max(float((h - ref).abs().max()) for h in runs), ms, pms,
-                 dk.launches,
+                 n_launches("desc_fused"),
                  bound(4 * box + 4 * ref.numel(), DESC_OPS_PER_VOXEL * work))
 
     def desc_phase():
@@ -653,11 +660,11 @@ def main() -> int:
             bx, by, bz = (wd.shape[1] for wd, _ in diags)
             prev, dg, m = ((None, None, None) if i == 0 else
                            (src, dog[:, i - 1], dmax[:, i - 1]))
-            n0 = (bk.blur_x_launches, bk.blur_yz_dog_launches)
+            n0 = (n_launches("blur_x"), n_launches("blur_yz_dog"))
             bk.blur_x(src, wx, lox, tmp)
             bk.blur_yz_dog(tmp, wy, loy, wz, loz, gpyr[:, i], prev, dg, m)
-            assert (bk.blur_x_launches - n0[0],
-                    bk.blur_yz_dog_launches - n0[1]) == (1, 1)
+            assert (n_launches("blur_x") - n0[0],
+                    n_launches("blur_yz_dog") - n0[1]) == (1, 1)
             for b in range(B):
                 xr = bk.blur_x_plain(src[b], wx, lox)
                 assert torch.equal(tmp[b], xr), (i, b)
@@ -700,7 +707,7 @@ def main() -> int:
             nbytes, ops, ms, pms, lm = sums[key]
             s.record(f"{key}_batch{B}", "sift3d_tpu_torch/csrc/blur.cu",
                      "sift3d_tpu/ops/blur_kernel.py:337", 0.0, ms, pms,
-                     getattr(bk, f"{key}_launches"), bound(nbytes, ops),
+                     n_launches(key), bound(nbytes, ops),
                      lm if lib else None)
 
         # Extrema: one launch for the batch, keys offset by the volume.
@@ -709,9 +716,10 @@ def main() -> int:
         per = nl * N
         found = 0
         for cap in (None, 1):
-            n0 = ek.launches
+            n0 = n_launches("extrema_candidates")
             keys, counts = ek.extrema_candidates(dog, thr, False, cap)
-            assert ek.launches - n0 == (1 if cap is None else 2)
+            assert n_launches("extrema_candidates") - n0 == \
+                (1 if cap is None else 2)
             keys = torch.sort(keys).values
             for b in range(B):
                 rk, rc = ek.extrema_candidates_plain(dog[b], thr[b])
@@ -742,9 +750,9 @@ def main() -> int:
         s.record(f"extrema_candidates_batch{B}",
                  "sift3d_tpu_torch/csrc/extrema.cu",
                  "sift3d_tpu/ops/extrema_kernel.py:384", 0.0, ms, pms,
-                 ek.launches, bound(4 * cen.numel() + 4 * outer + 8 * found
-                                    + 8 * (1 + B * nl),
-                                    2 * cen.numel() + 16 * passing))
+                 n_launches("extrema_candidates"),
+                 bound(4 * cen.numel() + 4 * outer + 8 * found
+                       + 8 * (1 + B * nl), 2 * cen.numel() + 16 * passing))
 
         # Orientation and descriptors on the flattened [B * L] stack,
         # keypoint level l of volume b at stack level b * L + 1 + l.
@@ -977,29 +985,25 @@ def main() -> int:
               f"upload {ums:.3f} ms ({vols.numel() * 4 / ums / 1e6:.2f} "
               f"GB/s) on {card}", flush=True)
 
-    counters = [(bk, "blur_x_launches", "blur_x"),
-                (bk, "blur_yz_dog_launches", "blur_yz_dog"),
-                (ek, "launches", "extrema_candidates"),
-                (ok, "launches", "orient"),
-                (dk, "launches", "desc_fused"),
-                (ok, "eigh_launches", "eigh3x3")]
+    counters = ("blur_x", "blur_yz_dog", "extrema_candidates", "orient",
+                "desc_fused", "eigh3x3")
+    base = {}
 
     def reset_counters():
-        for mod, attr, _ in counters:
-            setattr(mod, attr, 0)
+        base.update((name, n_launches(name)) for name in counters)
 
     def read_counters(p, where):
         """Launches since reset_counters; every kernel of the path must
         have run, s3d_eigh3x3 exactly where the edge test is on (without
         it the eigensolver runs inside s3d_orient only)."""
         torch.cuda.synchronize()
-        launches = {name: getattr(mod, attr) for mod, attr, name in counters}
-        print(f"       launches ({where}): {launches}", flush=True)
+        runs = {name: n_launches(name) - base[name] for name in counters}
+        print(f"       launches ({where}): {runs}", flush=True)
         if p.edge_thresh is None:
-            assert launches.pop("eigh3x3") == 0, launches
-        missing = [name for name, n in launches.items() if n == 0]
+            assert runs.pop("eigh3x3") == 0, runs
+        missing = [name for name, n in runs.items() if n == 0]
         assert not missing, f"not launched on the path: {missing}"
-        return launches
+        return runs
 
     def main_path(cell):
         _, size, units, reps, ext = CELLS[cell]
@@ -1184,7 +1188,7 @@ def main() -> int:
             nbytes, ops, ms, pms, _ = sums[key]
             s.record(f"{key}_shard", "sift3d_tpu_torch/csrc/blur.cu",
                      "sift3d_tpu/ops/blur_kernel.py:337", 0.0, ms, pms,
-                     getattr(bk, f"{key}_launches"), bound(nbytes, ops))
+                     n_launches(key), bound(nbytes, ops))
 
         # Extrema: four DoG slabs with a one-voxel halo, global keys.
         dog, dmax = st_["dog"], st_["dogmax"]
@@ -1223,9 +1227,10 @@ def main() -> int:
               flush=True)
         s.record("extrema_candidates_shard", "sift3d_tpu_torch/csrc/extrema.cu",
                  "sift3d_tpu/ops/extrema_kernel.py:384", 0.0, ms, pms,
-                 ek.launches, bound(4 * cen.numel() + 4 * outer
-                                    + 8 * keys.numel() + 8 * S * (1 + nl),
-                                    2 * cen.numel() + 16 * int(past.sum())))
+                 n_launches("extrema_candidates"),
+                 bound(4 * cen.numel() + 4 * outer + 8 * keys.numel()
+                       + 8 * S * (1 + nl),
+                       2 * cen.numel() + 16 * int(past.sum())))
 
         # Orientation and descriptors: each slab's candidates (those whose
         # window centre it owns) on its levels extended by the windows'
@@ -1265,7 +1270,8 @@ def main() -> int:
               flush=True)
         s.record("orient_shard", "sift3d_tpu_torch/csrc/ori.cu",
                  "sift3d_tpu/ops/ori_kernel.py:167", 0.0, ms, pms,
-                 ok.launches, bound(4 * box + 76 * K, 11 * box + 40 * sphere))
+                 n_launches("orient"),
+                 bound(4 * box + 76 * K, 11 * box + 40 * sphere))
         acc = ref.accepted
         R = ref.R[acc].contiguous()
         dl, dc, dsd = cand.level[acc], centers[acc].contiguous(), \
@@ -1299,7 +1305,7 @@ def main() -> int:
               flush=True)
         s.record("desc_fused_shard", "sift3d_tpu_torch/csrc/desc.cu",
                  "sift3d_tpu/ops/desc_kernel.py:304", 0.0, ms, pms,
-                 dk.launches, bound(4 * dbox + 4 * dref.numel(),
+                 n_launches("desc_fused"), bound(4 * dbox + 4 * dref.numel(),
                                     DESC_OPS_PER_VOXEL * work))
 
         # Slab 1's own rows without the windows' halo: the kernels read
@@ -1375,7 +1381,6 @@ def main() -> int:
         return counts, files[0].stat().st_size
 
     def profiling_phase():
-        from sift3d_tpu_torch import profiling
         gold = json.loads(FUNNEL_GOLDEN.read_text())
         times = profiling.StageTimes()
         runs = {}

@@ -9,7 +9,9 @@ flag changes (a hash of both is stored beside it).
 
 Every entry point returns ``cudaGetLastError()`` after its launch;
 ``call`` raises on a non-zero code, so a launch that the device refuses
-never passes silently.
+never passes silently, and counts each launch in the recorder
+(``profiling.counter("launch.<symbol>")``). A build is a span
+``sift3d.kernels.build`` and counts ``kernels.builds``.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from .. import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("blur.cu", "extrema.cu", "ori.cu", "desc.cu")
@@ -49,9 +52,10 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                        _F, _P),
 }
+# The recorder's launch counter of each entry point.
+LAUNCH_COUNTERS = {name: "launch." + name for name in _SIGNATURES}
 
 _lib = None
-build_seconds = 0.0   # wall time of the last nvcc build in this process
 
 
 def _nvcc() -> str:
@@ -84,21 +88,20 @@ def _run(cmd) -> None:
 
 
 def _build(so: Path, stamp: Path, digest: str) -> None:
-    global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [str(Path(tmp) / (p.stem + ".o")) for p in source_paths()]
-        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
-                    for o, p in zip(objs, source_paths())]
-        with ThreadPoolExecutor(len(compiles)) as pool:
-            list(pool.map(_run, compiles))
-        out = str(Path(tmp) / LIB_NAME)
-        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs])
-        os.replace(out, so)
-    stamp.write_text(digest)
-    build_seconds = time.perf_counter() - t0
+    with profiling.span("sift3d.kernels.build"):
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [str(Path(tmp) / (p.stem + ".o")) for p in source_paths()]
+            compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                        for o, p in zip(objs, source_paths())]
+            with ThreadPoolExecutor(len(compiles)) as pool:
+                list(pool.map(_run, compiles))
+            out = str(Path(tmp) / LIB_NAME)
+            _run([nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs])
+            os.replace(out, so)
+        stamp.write_text(digest)
+    profiling.count("kernels.builds")
 
 
 def lib() -> ctypes.CDLL:
@@ -122,12 +125,14 @@ def lib() -> ctypes.CDLL:
 
 
 def call(name: str, *args) -> None:
-    """Launch entry point `name`; raise if the launch reported an error."""
+    """Launch entry point `name`; raise if the launch reported an error;
+    count the launch."""
     handle = lib()
     rc = getattr(handle, name)(*args)
     if rc != 0:
         msg = handle.s3d_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+    profiling.count(LAUNCH_COUNTERS[name])
 
 
 def stream_ptr(t) -> int:

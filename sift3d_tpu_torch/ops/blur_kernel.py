@@ -64,11 +64,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from . import _build
-
-# Kernel launches on CUDA tensors, per kernel (chip_smoke.py reads them).
-blur_x_launches = 0
-blur_yz_dog_launches = 0
 
 X_WIDTH = 256            # csrc/blur.cu kXWidth: (y, z) columns of an x tile
 BLOCK = 4                # csrc/blur.cu kBlock: tiles are multiples of it
@@ -200,7 +197,6 @@ def blur_x(src: torch.Tensor, wx: torch.Tensor, lo: int,
     """out = the banded x pass of src, f32[nx, ny, nz] or a batch
     f32[B, nx, ny, nz] (each volume contiguous), band weights
     wx f32[nx, Bx]."""
-    global blur_x_launches
     if src.device.type == "cpu":
         return out.copy_(blur_x_plain(src, wx, lo))
     nx, ny, nz = dims = tuple(src.shape[-3:])
@@ -212,7 +208,6 @@ def blur_x(src: torch.Tensor, wx: torch.Tensor, lo: int,
     _build.call("s3d_blur_x", src.data_ptr(), out.data_ptr(), wx.data_ptr(),
                 wx.shape[1], lo, nb, src_bs, out_bs, nx, ny, nz, tx, smem,
                 _build.stream_ptr(src))
-    blur_x_launches += 1
     return out
 
 
@@ -242,7 +237,6 @@ def blur_yz_dog(src: torch.Tensor, wy: torch.Tensor, loy: int,
     entry) = max |dog| per volume. A z-slab src f32[..., nx, ny, nzs]
     holds cur's nz rows from row z_off and their halo; wz then holds the
     weights of cur's rows (their global indices)."""
-    global blur_yz_dog_launches
     if src.device.type == "cpu":
         c, d, m = blur_yz_dog_plain(src, wy, loy, wz, loz, prev, z_off)
         cur.copy_(c)
@@ -281,7 +275,6 @@ def blur_yz_dog(src: torch.Tensor, wy: torch.Tensor, loy: int,
                 wz.data_ptr(), wz.shape[1], loz, nb, src_bs, prev_bs, cur_bs,
                 dog_bs, dmax_bs, nx, ny, nz, nzs, int(z_off), ty, tz, xs, smem,
                 _build.stream_ptr(src))
-    blur_yz_dog_launches += 1
     return cur
 
 
@@ -291,7 +284,7 @@ def _diags(plan, octave: int, level: int, device: torch.device):
     the first blur of octave 0), as tensors on `device`:
     ((wx, lox), (wy, loy), (wz, loz))."""
     taps = plan.first_taps if level == 0 else plan.level_taps[level]
-    return tuple((torch.from_numpy(wd).to(device), lo)
+    return tuple((profiling.to_device(wd, None, device), lo)
                  for wd, lo in plan.conv_diags(octave, taps))
 
 

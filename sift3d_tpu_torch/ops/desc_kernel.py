@@ -56,12 +56,10 @@ import math
 import numpy as np
 import torch
 
-from .. import geometry
+from .. import geometry, profiling
 from ..params import ICOS_NFACES, ICOS_NVERT, NHIST_PER_DIM
 from ..windows import gather_windows, window_extent
 from . import _build, true_div, warm_cpu_math
-
-launches = 0   # kernel launches on CUDA tensors (chip_smoke.py reads it)
 
 NB = NHIST_PER_DIM
 # Blocks per keypoint are chosen so a launch has at least this many.
@@ -78,9 +76,9 @@ def _consts(device: torch.device):
     """Face geometry on `device`: f32[200] = MT_MATRIX [3, 60] then
     K_CONST [20], and i32[60] = FACE_IDX [20, 3]."""
     geom = np.concatenate([geometry.MT_MATRIX.ravel(), geometry.K_CONST])
-    return (torch.from_numpy(geom.astype(np.float32)).to(device),
-            torch.from_numpy(geometry.FACE_IDX.astype(np.int32).ravel())
-            .to(device))
+    return (profiling.to_device(geom.astype(np.float32), None, device),
+            profiling.to_device(geometry.FACE_IDX.astype(np.int32).ravel(),
+                                None, device))
 
 
 def _sparse4(vb: torch.Tensor) -> torch.Tensor:
@@ -277,7 +275,6 @@ def desc_fused(levels: torch.Tensor, lvl: torch.Tensor,
     On the card a keypoint whose window leaves the slab reads NaN (the
     kernel reads nothing outside the slab); the plain version raises
     ValueError."""
-    global launches
     if levels.device.type == "cpu":
         return desc_fused_plain(levels, lvl, centers, R, sd, units, params,
                                 sd_max, fractional, z_origin, global_nz)
@@ -311,5 +308,4 @@ def desc_fused(levels: torch.Tensor, lvl: torch.Tensor,
                 bad.data_ptr(), out.data_ptr(), K, splits, nx, ny, nzs,
                 int(z_origin), dims[2], *(float(np.float32(x)) for x in scal),
                 _build.stream_ptr(levels))
-    launches += 1
     return out

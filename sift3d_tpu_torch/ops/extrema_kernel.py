@@ -50,9 +50,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
-
-launches = 0   # kernel launches on CUDA tensors (chip_smoke.py reads it)
 
 _FACE_OFFSETS = [(1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
                  (0, 0, -1), (0, 0, 1)]
@@ -173,18 +172,16 @@ def extrema_candidates(dog: torch.Tensor, thr: torch.Tensor,
                 counts[1:].reshape(tuple(lead) + (nl,)))
 
     def launch(cap: int) -> torch.Tensor:
-        global launches
         keys = torch.empty(max(cap, 1), dtype=torch.int64, device=dog.device)
         _build.call("s3d_extrema_candidates", dog.data_ptr(), thr.data_ptr(),
                     keys.data_ptr(), counts.data_ptr(), cap, B, nl, nx, ny,
                     nz, zmin, zmax, int(z_origin), gnz, int(cuboid),
                     _build.stream_ptr(dog))
-        launches += 1
         return keys
 
     cap = default_capacity(dog.shape) if capacity is None else int(capacity)
     keys = launch(cap)
-    n = int(counts[0])    # the octave's one host sync
+    n = profiling.read_int(counts[0])    # the octave's count read
     if n > cap:           # once more, with a slot for every key
         counts.zero_()
         keys = launch(n)

@@ -57,9 +57,6 @@ import torch
 from ..windows import gather_windows, window_extent
 from . import _build, true_div, warm_cpu_math
 
-launches = 0        # s3d_orient launches on CUDA tensors (chip_smoke.py)
-eigh_launches = 0   # s3d_eigh3x3 launches on CUDA tensors (chip_smoke.py)
-
 
 class Orientation(NamedTuple):
     A: torch.Tensor              # f32[K, 3, 3] structure tensor
@@ -201,7 +198,6 @@ def eigh3x3_plain(A: torch.Tensor):
 def eigh3x3(A: torch.Tensor):
     """(w f32[K, 3], V f32[K, 3, 3]) of symmetric A f32[K, 3, 3]: the
     eigensolver of the orientation kernel, alone."""
-    global eigh_launches
     if A.device.type == "cpu":
         return eigh3x3_plain(A)
     K = A.shape[0]
@@ -211,7 +207,6 @@ def eigh3x3(A: torch.Tensor):
     if K:
         _build.call("s3d_eigh3x3", A.data_ptr(), w.data_ptr(), V.data_ptr(),
                     K, _build.stream_ptr(A))
-        eigh_launches += 1
     return w, V
 
 
@@ -287,7 +282,6 @@ def orient(levels: torch.Tensor, lvl: torch.Tensor, anchors: torch.Tensor,
     card a keypoint whose window leaves the slab gets NaN A, vd and R and
     no flag set (the kernel reads nothing outside the slab); the plain
     version raises ValueError."""
-    global launches
     if levels.device.type == "cpu":
         return orient_plain(levels, lvl, anchors, sd, units, params,
                             centers=centers, sd_max=sd_max,
@@ -318,6 +312,5 @@ def orient(levels: torch.Tensor, lvl: torch.Tensor, anchors: torch.Tensor,
                     int(z_origin), gnz,
                     *(float(np.float32(x)) for x in scal),
                     _build.stream_ptr(levels))
-        launches += 1
     return Orientation(moments[:, :9].reshape(K, 3, 3), moments[:, 9:], R,
                        flags)

@@ -23,6 +23,11 @@ batch is split into sub-batches whose transient buffers fit MEM_SHARE of
 the card's free memory beside the batch's pyramid, which is kept for the
 descriptors (SUB_BATCH forces a size).
 
+Each public call is a root span of the recorder (profiling.py:
+sift3d.detect[_batch], sift3d.describe[_batch]) holding the stage spans
+sift3d.detect.* and sift3d.describe.*, and every host-device crossing
+goes through profiling.to_device, to_host or read_int, which count them.
+
 Detection also leaves a funnel in SIFT3D._funnel, as the JAX package's
 SIFT3D does (sift3d_tpu/pipeline.py:1587-1600; profiling.detect_stats
 reads it): per (octave, keypoint level), the candidates, the rejections
@@ -53,6 +58,7 @@ from .detect import detect_extrema_octave
 from .keypoints import Descriptors, Keypoints
 from .orientation import assign_orientations
 from .params import DESC_NUMEL, DetectorParams
+from .profiling import span, to_device, to_host
 from .pyramid import PyramidPlan, build_gpyr_and_dog, make_plan, \
     scale_to_unit
 from .refinement import refine_candidates_octave
@@ -149,8 +155,9 @@ class SIFT3D:
     # -- detection ----------------------------------------------------------
 
     def detect_keypoints(self, vol) -> Keypoints:
-        vol = as_volume(vol, self.device)
-        return self._detect(vol.data[None], vol.units)[0]
+        with span("sift3d.detect", root=True):
+            vol = as_volume(vol, self.device)
+            return self._detect(vol.data[None], vol.units)[0]
 
     def detect_keypoints_batch(self, vols, units=(1.0, 1.0, 1.0)
                                ) -> list[Keypoints]:
@@ -158,7 +165,8 @@ class SIFT3D:
         or a sequence of volumes) at voxel `units`, each equal to what
         detect_keypoints gives for that volume alone. The detector then
         holds the batch's pyramid, for extract_descriptors_batch."""
-        return self._detect(_as_batch(vols), units)
+        with span("sift3d.detect_batch", root=True):
+            return self._detect(_as_batch(vols), units)
 
     def _sub_batch(self, plan: PyramidPlan, B: int) -> int:
         """Volumes per sub-batch: SUB_BATCH, or as many as fit MEM_SHARE of
@@ -180,18 +188,22 @@ class SIFT3D:
         """Keypoints of each volume of data f32[B, nx, ny, nz] (on any
         device; moved to the detector's a sub-batch at a time)."""
         B = data.shape[0]
-        plan = make_plan(data.shape[1:], units, self.params)
-        L = plan.num_gpyr_levels
-        self._plan, self._gpyr = None, None     # the last batch's pyramid
-        sub = self.sub_batch = self._sub_batch(plan, B)
-        gpyr = [torch.empty((B, L) + tuple(d), dtype=torch.float32,
-                            device=self.device) for d in plan.octave_dims]
+        with span("sift3d.detect.plan"):
+            plan = make_plan(data.shape[1:], units, self.params)
+            L = plan.num_gpyr_levels
+            self._plan, self._gpyr = None, None  # the last batch's pyramid
+            sub = self.sub_batch = self._sub_batch(plan, B)
+            gpyr = [torch.empty((B, L) + tuple(d), dtype=torch.float32,
+                                device=self.device)
+                    for d in plan.octave_dims]
         parts = []   # (octave, first volume, sub-batch size, host rows)
         for s in range(0, B, sub):
-            x = scale_to_unit(data[s:s + sub].to(self.device, torch.float32)
-                              .contiguous())
-            _, dogs, dogmax = build_gpyr_and_dog(
-                x, plan, [g[s:s + sub] for g in gpyr])
+            with span("sift3d.detect.upload_scale"):
+                x = scale_to_unit(to_device(data[s:s + sub], torch.float32,
+                                            self.device).contiguous())
+            with span("sift3d.detect.pyramid"):
+                _, dogs, dogmax = build_gpyr_and_dog(
+                    x, plan, [g[s:s + sub] for g in gpyr])
             del x
             for o in range(plan.num_octaves):
                 rows = self._octave(plan, o, gpyr[o][s:s + sub], dogs[o],
@@ -201,7 +213,8 @@ class SIFT3D:
             del dogs, dogmax
         self._plan, self._gpyr = plan, gpyr
         self._input_shape = tuple(int(d) for d in data.shape[1:])
-        kps, self._funnel_rows = self._keypoints(plan, parts, B)
+        with span("sift3d.detect.assembly"):
+            kps, self._funnel_rows = self._keypoints(plan, parts, B)
         self._funnel_counts = {}
         return kps
 
@@ -253,30 +266,41 @@ class SIFT3D:
         slab: one shard's rows of one volume (dog its haloed DoG slab), in
         global coordinates."""
         params = self.params
+        if gpyr_o.shape[0] == 1:   # one volume: no volume to decode
+            dog, dogmax = dog[0], dogmax[0]
+        zkw = {}
+        with span("sift3d.detect.extrema"):
+            if slab is not None:
+                cand = detect_extrema_octave(dog, dogmax, params,
+                                             slab.dog_origin, slab.nz,
+                                             slab.rows)
+                zkw = dict(z_origin=slab.levels_origin, global_nz=slab.nz)
+            else:
+                cand = detect_extrema_octave(dog, dogmax, params)
+        if cand.level.numel() == 0:
+            return None
+        with span("sift3d.detect.orientation"):
+            cols = self._orient(plan, o, gpyr_o, dog, cand, slab, zkw)
+        with span("sift3d.detect.rows_home"):
+            return to_host(torch.cat(cols, dim=1)).numpy()
+
+    def _orient(self, plan, o, gpyr_o, dog, cand, slab, zkw) -> list:
+        """_octave's refinement (with an extension on) and orientation of
+        the octave's candidates: the columns of its host rows."""
+        params = self.params
         nl = params.num_kp_levels
         ext = params.extensions
         S, L = gpyr_o.shape[:2]
-        if S == 1:       # one volume: its own stacks, no volume to decode
-            dog, dogmax = dog[0], dogmax[0]
-        zkw = {}
-        if slab is not None:
-            cand = detect_extrema_octave(dog, dogmax, params, slab.dog_origin,
-                                         slab.nz, slab.rows)
-            zkw = dict(z_origin=slab.levels_origin, global_nz=slab.nz)
-        else:
-            cand = detect_extrema_octave(dog, dogmax, params)
-        if cand.level.numel() == 0:
-            return None
-        scales = torch.tensor(plan.scales[o][1:1 + nl],
-                              dtype=torch.float32, device=self.device)
+        scales = to_device(plan.scales[o][1:1 + nl], torch.float32,
+                           self.device)
         sd = scales[cand.level]
         sd_max = plan.scales[o][nl]
         centers = None
         if ext:
             local = cand.coords
             if slab is not None:    # the candidates' rows in the DoG slab
-                local = local - torch.tensor([0, 0, slab.dog_origin],
-                                             device=local.device)
+                local = local - to_device([0, 0, slab.dog_origin], None,
+                                          local.device)
             ref = refine_candidates_octave(dog, local, cand.level,
                                            params, batch=cand.batch)
             centers = cand.coords.to(torch.float32) + ref.offset
@@ -300,12 +324,11 @@ class SIFT3D:
         flags = ori.flags & ref.edge_ok[:, None] if ext else ori.flags
         K = cand.level.numel()
         # Every column in f32 (exact for these values: coordinates and
-        # stack levels are below 2^24), one copy.
-        return torch.cat(
-            [centers if ext else cand.coords.to(torch.float32),
-             cand.strength[:, None], flags.to(torch.float32),
-             ori.R.reshape(K, 9)] + ([sd[:, None]] if ext else [])
-            + [lvl.to(torch.float32)[:, None]], dim=1).cpu().numpy()
+        # stack levels are below 2^24), for one copy.
+        return ([centers if ext else cand.coords.to(torch.float32),
+                 cand.strength[:, None], flags.to(torch.float32),
+                 ori.R.reshape(K, 9)] + ([sd[:, None]] if ext else [])
+                + [lvl.to(torch.float32)[:, None]])
 
     def _keypoints(self, plan, parts, B) -> tuple[list[Keypoints], tuple]:
         """Each volume's survivors, in candidate order, from the octaves'
@@ -364,27 +387,31 @@ class SIFT3D:
             raise ValueError("keypoint has invalid scale")
 
     def extract_descriptors(self, kp: Keypoints) -> Descriptors:
-        self._verify_keys(kp)
-        if self._gpyr[0].shape[0] != 1:
-            raise ValueError("the detector holds a batch's pyramid; use "
-                             "extract_descriptors_batch")
-        return self._describe([kp])[0]
+        with span("sift3d.describe", root=True):
+            with span("sift3d.describe.check"):
+                self._verify_keys(kp)
+            if self._gpyr[0].shape[0] != 1:
+                raise ValueError("the detector holds a batch's pyramid; use "
+                                 "extract_descriptors_batch")
+            return self._describe([kp])[0]
 
     def extract_descriptors_batch(self, kps) -> list[Descriptors]:
         """Descriptors of the keypoint lists of the last
         detect_keypoints_batch (one per volume, in order); an empty list
         gives empty descriptors."""
-        if self._gpyr is None:
-            raise ValueError(
-                "no Gaussian pyramid available; call detect_keypoints_batch "
-                "first")
-        if len(kps) != self._gpyr[0].shape[0]:
-            raise ValueError(f"{len(kps)} keypoint lists for a batch of "
-                             f"{self._gpyr[0].shape[0]} volumes")
-        for kp in kps:
-            if len(kp):
-                self._verify_keys(kp)
-        return self._describe(kps)
+        with span("sift3d.describe_batch", root=True):
+            if self._gpyr is None:
+                raise ValueError(
+                    "no Gaussian pyramid available; call "
+                    "detect_keypoints_batch first")
+            if len(kps) != self._gpyr[0].shape[0]:
+                raise ValueError(f"{len(kps)} keypoint lists for a batch of "
+                                 f"{self._gpyr[0].shape[0]} volumes")
+            with span("sift3d.describe.check"):
+                for kp in kps:
+                    if len(kp):
+                        self._verify_keys(kp)
+            return self._describe(kps)
 
     def _describe(self, kps) -> list[Descriptors]:
         """Descriptors of volume b's keypoints kps[b], one kernel launch
@@ -400,46 +427,55 @@ class SIFT3D:
                    or any(not np.all(kp.coords == np.rint(kp.coords))
                           for kp in kps))
         sd_fctr = 2.0 ** (1.0 / nl) if refined else 1.0
-        out = [Descriptors(xyz=np.zeros((len(kp), 3), np.float32),
-                           sd=np.asarray(kp.sd, np.float32),
-                           data=np.zeros((len(kp), DESC_NUMEL), np.float32))
-               for kp in kps]
         dev = self.device
         octaves = np.unique(np.concatenate([kp.octave for kp in kps]))
         sels, hists, xyzs = [], [], []
         for o in octaves:
             o = int(o)
-            sel = [np.nonzero(kp.octave == o)[0] for kp in kps]
+            with span("sift3d.describe.gather"):
+                sel = [np.nonzero(kp.octave == o)[0] for kp in kps]
 
-            def put(field, dtype):
-                a = np.concatenate([getattr(kp, field)[i]
-                                    for kp, i in zip(kps, sel)])
-                return torch.as_tensor(a, dtype=dtype, device=dev)
-            # The level in the batch's stack: volume b's level l is b*L+1+l.
-            stack = np.repeat(np.arange(B) * L + 1, [len(i) for i in sel])
-            g = self._gpyr[o]
-            hist, xyz_o = octave_histograms(
-                g.reshape((B * L,) + tuple(g.shape[2:])),
-                torch.as_tensor(stack + np.concatenate(
-                    [kp.level[i] for kp, i in zip(kps, sel)]),
-                    dtype=torch.int64, device=dev),
-                put("coords", torch.float32), put("R", torch.float32),
-                put("sd", torch.float32), o, plan.level_units(o),
-                self.params, sd_max=plan.scales[o][nl] * sd_fctr,
-                fractional=refined)
+                def put(field, dtype):
+                    a = np.concatenate([getattr(kp, field)[i]
+                                        for kp, i in zip(kps, sel)])
+                    return to_device(a, dtype, dev)
+                # The level in the batch's stack: volume b's level l is
+                # b * L + 1 + l.
+                stack = np.repeat(np.arange(B) * L + 1,
+                                  [len(i) for i in sel])
+                lvl = to_device(stack + np.concatenate(
+                    [kp.level[i] for kp, i in zip(kps, sel)]), torch.int64,
+                    dev)
+                args = (lvl, put("coords", torch.float32),
+                        put("R", torch.float32), put("sd", torch.float32))
+            with span("sift3d.describe.histograms"):
+                g = self._gpyr[o]
+                hist, xyz_o = octave_histograms(
+                    g.reshape((B * L,) + tuple(g.shape[2:])), *args, o,
+                    plan.level_units(o), self.params,
+                    sd_max=plan.scales[o][nl] * sd_fctr, fractional=refined)
             sels.append(sel)
             hists.append(hist)
             xyzs.append(xyz_o)
-        if not sels:
-            return out
-        # Every octave's histograms normalized at once, one host copy.
-        host = torch.cat([normalize(torch.cat(hists), self.params),
-                          torch.cat(xyzs)], dim=1).cpu().numpy()
-        start = 0
-        for sel in sels:
-            for d, i in zip(out, sel):
-                rows = host[start:start + len(i)]
-                start += len(i)
-                d.data[i] = rows[:, :DESC_NUMEL]
-                d.xyz[i] = rows[:, DESC_NUMEL:]
+        host = None
+        if sels:
+            with span("sift3d.describe.normalize"):
+                # Every octave's histograms normalized at once, one host
+                # copy.
+                host = to_host(torch.cat(
+                    [normalize(torch.cat(hists), self.params),
+                     torch.cat(xyzs)], dim=1)).numpy()
+        with span("sift3d.describe.scatter"):
+            out = [Descriptors(xyz=np.zeros((len(kp), 3), np.float32),
+                               sd=np.asarray(kp.sd, np.float32),
+                               data=np.zeros((len(kp), DESC_NUMEL),
+                                             np.float32))
+                   for kp in kps]
+            start = 0
+            for sel in sels:
+                for d, i in zip(out, sel):
+                    rows = host[start:start + len(i)]
+                    start += len(i)
+                    d.data[i] = rows[:, :DESC_NUMEL]
+                    d.xyz[i] = rows[:, DESC_NUMEL:]
         return out

@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import profiling
+
 
 @dataclasses.dataclass(frozen=True)
 class Volume:
@@ -26,17 +28,17 @@ class Volume:
     @classmethod
     def from_array(cls, arr, units=(1.0, 1.0, 1.0),
                    device: torch.device | str = "cpu") -> "Volume":
-        if isinstance(arr, torch.Tensor):
-            t = arr.to(device=device, dtype=torch.float32)
-        else:
-            t = torch.from_numpy(np.asarray(arr, dtype=np.float32)).to(device)
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr, dtype=np.float32)
+        t = profiling.to_device(arr, torch.float32, device)
         if t.ndim != 3:
             raise ValueError(f"expected a 3-D volume, got shape "
                              f"{tuple(t.shape)}")
         return cls(t.contiguous(), tuple(float(u) for u in units))
 
     def to(self, device: torch.device | str) -> "Volume":
-        return Volume(self.data.to(device), self.units)
+        return Volume(profiling.to_device(self.data, None, device),
+                      self.units)
 
 
 def as_volume(vol, device: torch.device | str) -> Volume:

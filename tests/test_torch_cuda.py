@@ -15,6 +15,13 @@ torch = pytest.importorskip("torch")
 pytestmark = pytest.mark.cuda
 
 
+def _launches(*kernels):
+    """Launches of each kernel symbol so far (the recorder's counters)."""
+    from sift3d_tpu_torch import profiling
+    n = tuple(profiling.counter("launch." + k) for k in kernels)
+    return n if len(n) > 1 else n[0]
+
+
 @pytest.fixture(scope="module")
 def dev():
     if not torch.cuda.is_available():
@@ -38,17 +45,16 @@ def _rand(shape, seed, dev):
 def test_blur_chain_bit_exact(dev, shape, units):
     """Every octave of the pyramid from s3d_blur_x + s3d_blur_yz_dog
     equals the plain chain bit for bit (levels, DoG, max |DoG|)."""
-    from sift3d_tpu_torch.ops import blur_kernel as bk
     from sift3d_tpu_torch.params import DetectorParams
     from sift3d_tpu_torch.pyramid import build_gpyr_and_dog, make_plan
     plan = make_plan(shape, units, DetectorParams())
     x = _rand(shape, 1, dev)
-    n0 = (bk.blur_x_launches, bk.blur_yz_dog_launches)
+    n0 = _launches("s3d_blur_x", "s3d_blur_yz_dog")
     got = build_gpyr_and_dog(x, plan)
     L = plan.num_gpyr_levels
     levels = L + (plan.num_octaves - 1) * (L - 1)
-    assert bk.blur_x_launches - n0[0] == levels
-    assert bk.blur_yz_dog_launches - n0[1] == levels
+    assert _launches("s3d_blur_x") - n0[0] == levels
+    assert _launches("s3d_blur_yz_dog") - n0[1] == levels
     ref = build_gpyr_and_dog(x.cpu(), plan)
     for o in range(plan.num_octaves):
         for a, b in zip(got, ref):
@@ -71,15 +77,15 @@ def test_extrema_candidates_identical(dev, shape, cuboid):
     thr = torch.tensor([0.1, 0.2, 0.0], device=dev)
     rk, rc = ek.extrema_candidates_plain(dog.cpu(), thr.cpu(), cuboid)
     rk = torch.sort(rk).values
-    n0 = ek.launches
+    n0 = _launches("s3d_extrema_candidates")
     keys, counts = _candidates(ek, dog, thr, cuboid)
     fits = rk.numel() <= ek.default_capacity(dog.shape)
-    assert ek.launches - n0 == (1 if fits else 2)
+    assert _launches("s3d_extrema_candidates") - n0 == (1 if fits else 2)
     assert torch.equal(keys, rk) and torch.equal(counts, rc)
     if rk.numel() > 1:
-        n0 = ek.launches
+        n0 = _launches("s3d_extrema_candidates")
         keys, counts = _candidates(ek, dog, thr, cuboid, capacity=1)
-        assert ek.launches - n0 == 2
+        assert _launches("s3d_extrema_candidates") - n0 == 2
         assert torch.equal(keys, rk) and torch.equal(counts, rc)
 
 
@@ -111,9 +117,9 @@ def test_orient_close(dev, units):
     levels = _rand((3, 30, 28, 33), 3, dev)
     K = 13   # no multiple-of-8 requirement
     lvl, coords, sd = _octave_keypoints(dev, K, (30, 28, 33), 3, 4)
-    n0 = ok.launches
+    n0 = _launches("s3d_orient")
     got = ok.orient(levels, lvl, coords, sd, units, params)
-    assert ok.launches - n0 == 1
+    assert _launches("s3d_orient") - n0 == 1
     ref = ok.orient_plain(levels, lvl, coords, sd, units, params)
     for a, b in ((got.A, ref.A), (got.vd, ref.vd)):
         err = (a - b).abs().reshape(K, -1).amax(1)
@@ -217,9 +223,9 @@ def test_orient_fractional_close(dev, units):
     K = 21
     lvl, anchors, centers, sd = _fractional(dev, K, shape, 3, 14)
     kw = dict(centers=centers, sd_max=4.0, fractional=True)
-    n0 = ok.launches
+    n0 = _launches("s3d_orient")
     got = ok.orient(levels, lvl, anchors, sd, units, params, **kw)
-    assert ok.launches - n0 == 1
+    assert _launches("s3d_orient") - n0 == 1
     ref = ok.orient_plain(levels, lvl, anchors, sd, units, params, **kw)
     for a, b in ((got.A, ref.A), (got.vd, ref.vd)):
         err = (a - b).abs().reshape(K, -1).amax(1)
@@ -305,17 +311,16 @@ def test_blur_chain_batch_bit_exact(dev, shape, units):
     """A batch of three volumes through the chain: each volume's octaves
     equal its own plain chain bit for bit (levels, DoG, max |DoG| per
     volume), with as many launches as one volume takes."""
-    from sift3d_tpu_torch.ops import blur_kernel as bk
     from sift3d_tpu_torch.params import DetectorParams
     from sift3d_tpu_torch.pyramid import build_gpyr_and_dog, make_plan
     plan = make_plan(shape, units, DetectorParams())
     x = torch.stack([_rand(shape, s, dev) for s in (1, 2, 3)])
-    n0 = (bk.blur_x_launches, bk.blur_yz_dog_launches)
+    n0 = _launches("s3d_blur_x", "s3d_blur_yz_dog")
     got = build_gpyr_and_dog(x, plan)
     L = plan.num_gpyr_levels
     levels = L + (plan.num_octaves - 1) * (L - 1)
-    assert bk.blur_x_launches - n0[0] == levels
-    assert bk.blur_yz_dog_launches - n0[1] == levels
+    assert _launches("s3d_blur_x") - n0[0] == levels
+    assert _launches("s3d_blur_yz_dog") - n0[1] == levels
     for b in range(3):
         ref = build_gpyr_and_dog(x[b].cpu(), plan)
         for o in range(plan.num_octaves):
@@ -339,9 +344,10 @@ def test_extrema_candidates_batch_identical(dev, cuboid):
                     for b, (k, _) in enumerate(ref)])
     fits = rk.numel() <= ek.default_capacity(dog.shape)
     for cap in (None, 1):
-        n0 = ek.launches
+        n0 = _launches("s3d_extrema_candidates")
         keys, counts = _candidates(ek, dog, thr, cuboid, capacity=cap)
-        assert ek.launches - n0 == (1 if cap is None and fits else 2)
+        assert _launches("s3d_extrema_candidates") - n0 == \
+            (1 if cap is None and fits else 2)
         assert torch.equal(keys, rk)
         assert torch.equal(counts, torch.stack([c for _, c in ref]))
 
@@ -384,19 +390,17 @@ def test_batch_pipeline_on_card(dev):
     descriptor kernel's atomics add in a changing order), with the launches
     of one volume for the blur and the extrema."""
     import sift3d_tpu_torch as st
-    from sift3d_tpu_torch.ops import blur_kernel as bk
-    from sift3d_tpu_torch.ops import extrema_kernel as ek
     from sift3d_tpu_torch.phantoms import bench_volume
     vols = torch.stack([bench_volume("sparse", 64, dev),
                         bench_volume("sparse", 64, dev, seed=5),
                         bench_volume("dense", 64, dev)])
     det = st.SIFT3D(st.DetectorParams(), dev)
     one = st.SIFT3D(st.DetectorParams(), dev)
-    n0 = (bk.blur_x_launches, ek.launches)
+    n0 = _launches("s3d_blur_x", "s3d_extrema_candidates")
     one.detect_keypoints(vols[0])
-    n1 = (bk.blur_x_launches, ek.launches)
+    n1 = _launches("s3d_blur_x", "s3d_extrema_candidates")
     kps = det.detect_keypoints_batch(vols)
-    n2 = (bk.blur_x_launches, ek.launches)
+    n2 = _launches("s3d_blur_x", "s3d_extrema_candidates")
     assert tuple(b - a for a, b in zip(n1, n2)) == \
         tuple(b - a for a, b in zip(n0, n1))
     dss = det.extract_descriptors_batch(kps)
@@ -632,7 +636,6 @@ def test_sharded_sift3d_on_card(dev, ext):
     bit for bit, rows and descriptors, and every shard launches the
     kernels; the batch over a mesh axis equals the unsharded batch."""
     import sift3d_tpu_torch as st
-    from sift3d_tpu_torch.ops import blur_kernel as bk
     from sift3d_tpu_torch.parallel import MeshBatchSIFT3D, ShardedSIFT3D, \
         make_mesh
     from sift3d_tpu_torch.phantoms import bench_volume
@@ -642,9 +645,9 @@ def test_sharded_sift3d_on_card(dev, ext):
     kp1 = one.detect_keypoints(vol)
     ds1 = one.extract_descriptors(kp1)
     det = ShardedSIFT3D(p, mesh=make_mesh({"z": 4}, [dev] * 4))
-    n0 = bk.blur_yz_dog_launches
+    n0 = _launches("s3d_blur_yz_dog")
     kp2 = det.detect_keypoints(vol)
-    assert bk.blur_yz_dog_launches - n0 > 4 * 6
+    assert _launches("s3d_blur_yz_dog") - n0 > 4 * 6
     ds2 = det.extract_descriptors(kp2)
     assert len(kp1) > 5
     for f in ("coords", "octave", "level", "sd", "strength", "R"):
@@ -702,3 +705,48 @@ def test_stage_sync_waits_for_the_card(dev):
     device_ms = start.elapsed_time(end)
     assert device_ms > 1.0
     assert times.times["matmuls"] * 1e3 >= device_ms
+
+
+def test_host_syncs_equal_sync_debug_warnings(dev, tmp_path):
+    """One detect_keypoints_batch + extract_descriptors_batch call: under
+    torch.cuda.set_sync_debug_mode("warn") it warns exactly as often as the
+    recorder counts host_syncs, and the h2d_bytes + d2h_bytes it counts are
+    the bytes of the host-device copies in the profiler's trace."""
+    import json
+    import warnings
+    import sift3d_tpu_torch as st
+    from sift3d_tpu_torch import profiling
+    from sift3d_tpu_torch.phantoms import bench_volume
+    vols = torch.stack([bench_volume("sparse", 64, dev),
+                        bench_volume("sparse", 64, dev, seed=5)])
+    det = st.SIFT3D(st.DetectorParams(), dev)
+    det.extract_descriptors_batch(det.detect_keypoints_batch(vols))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                kps = det.detect_keypoints_batch(vols)
+                det.extract_descriptors_batch(kps)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    calls = profiling.read()["calls"][-2:]
+    assert [c["root"] for c in calls] == ["sift3d.detect_batch",
+                                          "sift3d.describe_batch"]
+    syncs = sum(c["counters"].get("host_syncs", 0) for c in calls)
+    warned = [w for w in caught
+              if "called a synchronizing CUDA operation" in str(w.message)]
+    assert syncs == len(warned) > 0, (syncs, [str(w.message)
+                                              for w in warned])
+    counted = sum(c["counters"].get(k, 0) for c in calls
+                  for k in ("h2d_bytes", "d2h_bytes"))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    copies = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "gpu_memcpy"
+              and ("HtoD" in e["name"] or "DtoH" in e["name"])]
+    assert len(copies) == syncs
+    assert counted == sum(int(e["args"]["bytes"]) for e in copies)

@@ -82,13 +82,17 @@ def test_tf32_disabled_at_import():
 def test_wrappers_use_plain_version_only_on_cpu(mod, fn, args):
     """Each wrapper branches on the tensor's device, never on what is
     installed: a CPU tensor takes the plain version, anything else the
-    kernel (and the launch counter)."""
+    kernel, through _build.call, which counts the launch in the
+    recorder."""
     import importlib
     import inspect
+    from sift3d_tpu_torch.ops import _build
     m = importlib.import_module(f"sift3d_tpu_torch.ops.{mod}")
     src = inspect.getsource(getattr(m, fn))
     assert '.device.type == "cpu"' in src
-    assert "_build.call(" in src and "launches += 1" in src
+    assert "_build.call(" in src
+    assert "profiling.count(LAUNCH_COUNTERS[name])" in \
+        inspect.getsource(_build.call)
     assert "try:" not in src
     assert hasattr(m, f"{fn}_plain")
 

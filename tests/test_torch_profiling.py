@@ -272,3 +272,237 @@ def test_funnel_golden_agrees_with_keypoint_golden(cell):
                 - f["reject_corner"])
         assert (left >= f["survivors"] if gold["extensions"]
                 else left == f["survivors"])
+
+
+# -- the recorder ----------------------------------------------------------
+
+HARNESS_NAMES = {"call", "between_calls", "detect", "describe"}
+
+
+def _inside_parents(spans):
+    """Every span of a call's list lies inside its parent."""
+    for name, parent, t0, t1 in spans[1:]:
+        assert 0 <= parent < len(spans), name
+        _, _, p0, p1 = spans[parent]
+        assert p0 <= t0 <= t1 <= p1, (name, spans[parent][0])
+
+
+def test_batch_records_one_root_per_public_call():
+    """A small CPU batch detect + describe, and a single volume's: one
+    record a public call, rooted at its name, every span inside its parent,
+    every name the recorder's own (never a name of the harness's spans)."""
+    vols = np.stack([make_phantom(32),
+                     np.ascontiguousarray(make_phantom(32)[::-1])])
+    det = st.SIFT3D(st.DetectorParams(), "cpu")
+    kps = det.detect_keypoints_batch(vols)
+    det.extract_descriptors_batch(kps)
+    kp = det.detect_keypoints(vols[0])
+    det.extract_descriptors(kp)
+    calls = profiling.read()["calls"][-4:]
+    assert [c["root"] for c in calls] == [
+        "sift3d.detect_batch", "sift3d.describe_batch", "sift3d.detect",
+        "sift3d.describe"]
+    full = profiling.read()["full"][-4:]
+    assert [s[0][0] for s in full] == [c["root"] for c in calls]
+    for call, spans in zip(calls, full):
+        _inside_parents(spans)
+        assert spans[0][1] == -1
+        names = {s[0] for s in spans}
+        assert all(n.startswith("sift3d.") for n in names)
+        assert not names & HARNESS_NAMES
+        assert set(call["spans"]) == names
+        for name, (n, ns, own) in call["spans"].items():
+            assert n == sum(s[0] == name for s in spans)
+            assert 0 <= own <= ns
+        # self times add up to the root's time
+        assert sum(own for _, _, own in call["spans"].values()) == \
+            call["t1"] - call["t0"]
+        assert call["counters"].get("host_syncs", 0) == 0   # the CPU
+    detect = {s[0] for s in full[0]}
+    assert {"sift3d.detect.plan", "sift3d.detect.upload_scale",
+            "sift3d.detect.pyramid", "sift3d.detect.extrema",
+            "sift3d.detect.orientation", "sift3d.detect.rows_home",
+            "sift3d.detect.assembly"} <= detect
+    describe = {s[0] for s in full[1]}
+    assert {"sift3d.describe.check", "sift3d.describe.gather",
+            "sift3d.describe.histograms", "sift3d.describe.normalize",
+            "sift3d.describe.scatter"} <= describe
+    assert len(full[0]) + len(full[1]) <= 100
+
+
+def test_no_record_function_without_a_profiler(monkeypatch):
+    """With no profiler running, the path and StageTimes never enter a
+    torch.profiler.record_function."""
+    def boom(*a, **k):
+        raise AssertionError("record_function entered")
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", boom)
+    monkeypatch.setattr(profiling, "_rf_enter", boom)
+    det = st.SIFT3D(st.DetectorParams(), "cpu")
+    times = profiling.StageTimes()
+    with times.stage("detect"):
+        kp = det.detect_keypoints(make_phantom(32))
+    det.extract_descriptors(kp)
+    assert times.counts == {"detect": 1}
+
+
+def test_spans_map_onto_the_trace(tmp_path):
+    """Under profiling.trace, each span of the recorded calls is also a
+    user_annotation of the trace, and trace_clock lays the recorder's
+    stamps onto it within 0.5 ms."""
+    det = st.SIFT3D(st.DetectorParams(), "cpu")
+    kp = det.detect_keypoints(make_phantom(32))      # warm
+    with profiling.trace(tmp_path, device="cpu"):
+        kp = det.detect_keypoints(make_phantom(32))
+        det.extract_descriptors(kp)
+    full = profiling.read()["full"][-2:]
+    trace = json.loads(next(tmp_path.glob("*.pt.trace.json")).read_text())
+    to_ts = profiling.trace_clock(trace)
+    ann = {}
+    for e in sorted((e for e in trace["traceEvents"]
+                     if e.get("cat") == "user_annotation"),
+                    key=lambda e: e["ts"]):
+        ann.setdefault(e["name"], []).append(e)
+    seen = {}
+    n = 0
+    for spans in full:
+        for name, _, t0, t1 in spans:
+            k = seen[name] = seen.get(name, -1) + 1
+            e = ann[name][k]
+            assert abs(to_ts(t0) - e["ts"]) < 500, name
+            assert abs(to_ts(t1) - (e["ts"] + e["dur"])) < 500, name
+            n += 1
+    assert n == sum(len(v) for k, v in ann.items() if k.startswith("sift3d."))
+
+
+def test_ring_stays_bounded():
+    """The ring keeps the last RING_CALLS calls, the full span lists the
+    last FULL_CALLS; counters add up within a call and in total."""
+    base = profiling.counter("test.ticks")
+    for i in range(profiling.RING_CALLS + 5):
+        with profiling.span("sift3d.detect", root=True):
+            with profiling.span("sift3d.detect.plan"):
+                profiling.count("test.ticks", 2)
+            profiling.count("test.ticks")
+    r = profiling.read()
+    assert len(r["calls"]) == profiling.RING_CALLS
+    assert len(r["full"]) == profiling.FULL_CALLS
+    assert r["calls"][-1]["counters"] == {"test.ticks": 3}
+    assert profiling.counter("test.ticks") - base == \
+        3 * (profiling.RING_CALLS + 5)
+    assert all(len(s) == 2 for s in r["full"])
+
+
+def test_nested_public_call_and_loose_spans():
+    """A public call inside another is a span of the outer call; a span
+    outside any call is kept only in the totals."""
+    t = profiling.read()["spans"].get("loose", [0, 0])[0]
+    with profiling.span("loose"):
+        with profiling.span("sift3d.describe", root=True):
+            with profiling.span("sift3d.detect", root=True):
+                pass
+    last = profiling.read()["calls"][-1]
+    assert last["root"] == "sift3d.describe"
+    assert last["spans"]["sift3d.detect"][0] == 1
+    assert profiling.read()["full"][-1][1][:2] == ("sift3d.detect", 0)
+    assert profiling.read()["spans"]["loose"][0] == t + 1
+
+
+def test_report_has_stage_times_layout():
+    """report() gives per span name the median self time and count over
+    each root's calls (a span a call lacks counts 0 there), added over the
+    roots, in StageTimes.report's layout."""
+    ms = 1_000_000
+    calls = [{"root": "sift3d.detect", "t0": 0, "t1": 0,
+              "spans": {"sift3d.detect": [1, 9 * ms, 1 * ms],
+                        "sift3d.detect.plan": [k, 8 * ms, (8 + k) * ms],
+                        "sift3d.to_device": [2 * k, ms, ms]},
+              "counters": {}} for k in (1, 2, 3)]
+    calls += [{"root": "sift3d.describe", "t0": 0, "t1": 0,
+               "spans": {"sift3d.describe": [1, 5 * ms, 4 * ms]}
+               | ({"sift3d.to_device": [4, ms, ms]} if k else {}),
+               "counters": {}} for k in (0, 1, 1)]
+    text = profiling.report(calls)
+    ref = profiling.StageTimes()
+    ref.times.update({"sift3d.detect": 1e-3, "sift3d.detect.plan": 10e-3,
+                      "sift3d.to_device": 2e-3, "sift3d.describe": 4e-3})
+    ref.counts.update({"sift3d.detect": 1, "sift3d.detect.plan": 2,
+                       "sift3d.to_device": 4 + 4, "sift3d.describe": 1})
+    assert text == ref.report()
+
+
+def test_crossings_on_the_cpu_copy_and_count_nothing():
+    before = profiling.read()["counters"]
+    a = np.arange(6, dtype=np.float64)
+    t = profiling.to_device(a, torch.float32, "cpu")
+    assert t.dtype == torch.float32 and t.tolist() == a.tolist()
+    assert profiling.to_host(t) is t
+    assert profiling.read_int(torch.tensor([5])[0]) == 5
+    assert profiling.read()["counters"] == before
+
+
+def test_idle_by_span_on_a_synthetic_trace(monkeypatch):
+    """Idle stretches of the card inside the windows, each put down to the
+    innermost span open on the host; trace_clock maps a stamp to the trace
+    by the host clocks' offset and the trace's base time."""
+    base = 1_700_000_000 * 10 ** 9
+    monkeypatch.setattr(profiling.time, "time_ns", lambda: base + 7)
+    monkeypatch.setattr(profiling.time, "perf_counter_ns", lambda: 7)
+
+    def ns(t_us):       # the stamp that trace_clock maps to t_us
+        return t_us * 1000
+
+    spans = [[["sift3d.detect", -1, ns(0), ns(100)],
+              ["sift3d.detect.plan", 0, ns(10), ns(30)],
+              ["sift3d.to_device", 1, ns(20), ns(25)],
+              ["sift3d.detect.assembly", 0, ns(60), ns(90)]]]
+    trace = {"baseTimeNanoseconds": base, "traceEvents": [
+        {"ph": "X", "cat": "user_annotation", "name": "detect", "ts": 0,
+         "dur": 100},
+        {"ph": "X", "cat": "kernel", "name": "k", "ts": 5, "dur": 17},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "m", "ts": 40, "dur": 30},
+        {"ph": "X", "cat": "kernel", "name": "k", "ts": 95, "dur": 20}]}
+    got = profiling.idle_by_span(trace, spans, within=("detect",))
+    want = {"sift3d.detect": 5 + 10 + 5, "sift3d.to_device": 3,
+            "sift3d.detect.plan": 5, "sift3d.detect.assembly": 20}
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v * 1e-6, abs=2e-9), k
+
+
+def test_threads_record_their_own_calls():
+    """Threads (more than cores, a short switch interval) each record
+    their own calls; no count or span of the shared totals is lost."""
+    import sys
+    import threading
+    n_threads, n_calls = 16, 200
+    base = profiling.counter("test.threads")
+    spans = profiling.read()["spans"].get("sift3d.thread", [0, 0])[0]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+
+    def work(i):
+        for _ in range(n_calls):
+            with profiling.span("sift3d.thread", root=True):
+                with profiling.span(f"sift3d.thread.{i}"):
+                    profiling.count("test.threads")
+                profiling.count("test.threads")
+
+    try:
+        pool = [threading.Thread(target=work, args=(i,))
+                for i in range(n_threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(switch)
+    assert profiling.counter("test.threads") - base == \
+        2 * n_threads * n_calls
+    assert profiling.read()["spans"]["sift3d.thread"][0] - spans == \
+        n_threads * n_calls
+    for c in profiling.read()["calls"][-50:]:
+        assert c["root"] == "sift3d.thread"
+        assert c["counters"] == {"test.threads": 2}
+        assert len(c["spans"]) == 2

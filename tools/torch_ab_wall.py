@@ -11,7 +11,9 @@ drift and the spread between processes hit both alike:
  - --register: register() of the phantom against its copy rotated by 8
    degrees about z and shifted by (2, -1, 3) voxels (500 hypotheses);
  - --shards S: the default work through parallel.ShardedSIFT3D on S
-   shards of the card (make_mesh({"z": S}, ["cuda:0"] * S)).
+   shards of the card (make_mesh({"z": S}, ["cuda:0"] * S));
+ - --batch B: detect_keypoints_batch + extract_descriptors_batch on B
+   volumes, the phantom and B - 1 drawn from seeds 101, 102, ...
 Each run ends in a device sync. Prints the card, then per tree the median
 wall and its quartiles over --rounds (41) rounds after a warm-up, and the
 median of the paired differences A - B with the share of rounds in which
@@ -19,7 +21,7 @@ A was the faster.
 
 Usage: python tools/torch_ab_wall.py --other DIR [--size N] [--dense]
                                      [--refine] [--register] [--shards S]
-                                     [--rounds N]
+                                     [--batch B] [--rounds N]
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ def main(argv=None) -> int:
     ap.add_argument("--refine", action="store_true")
     ap.add_argument("--register", action="store_true")
     ap.add_argument("--shards", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=41)
     args = ap.parse_args(argv)
 
@@ -73,8 +76,11 @@ def main(argv=None) -> int:
     ).stdout.strip()
 
     n = args.size
-    vol = phantoms.bench_volume("dense" if args.dense else "sparse", n,
-                                "cuda")
+    kind = "dense" if args.dense else "sparse"
+    vol = phantoms.bench_volume(kind, n, "cuda")
+    vols = torch.stack([vol] + [
+        phantoms.bench_volume(kind, n, "cuda", seed=100 + b)
+        for b in range(1, args.batch)]) if args.batch else None
     moving = None
     if args.register:
         th = np.deg2rad(8.0)
@@ -98,6 +104,9 @@ def main(argv=None) -> int:
         if args.register:
             return lambda: st.register(vol, moving, num_iter=500,
                                        detectors=det, device="cuda")
+        if args.batch:
+            return lambda: det.extract_descriptors_batch(
+                det.detect_keypoints_batch(vols))
         return lambda: det.extract_descriptors(det.detect_keypoints(vol))
 
     def timed(fn) -> float:
@@ -119,7 +128,8 @@ def main(argv=None) -> int:
     what = (f"{'dense' if args.dense else 'sparse'}{n}"
             f"{' refined' if args.refine else ''}"
             f"{' register pair' if args.register else ''}"
-            f"{f' on {args.shards} shards' if args.shards else ''}, input "
+            f"{f' on {args.shards} shards' if args.shards else ''}"
+            f"{f' batch of {args.batch}' if args.batch else ''}, input "
             f"on the card")
     print(f"{what}, {args.rounds} rounds alternating A and B, on {card}")
     for k, root in (("A", REPO), ("B", args.other.resolve())):

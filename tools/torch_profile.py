@@ -9,9 +9,12 @@ extract_descriptors_batch on B such phantoms (the bench one and B - 1
 drawn from seeds 101, 102, ...), and prints, per volume or per batch:
  - the wall time of detect and of describe, each ending in a device sync
    (median of --repeats runs, default 7, after a warm-up, with the spread
-   between the quartiles), and the same runs' profiling.StageTimes report
-   (each stage a torch.profiler span); the input comes from host memory,
-   or with --on-card from a tensor already on the card (no upload);
+   between the quartiles), and the same runs' profiling.StageTimes report;
+   the input comes from host memory, or with --on-card from a tensor
+   already on the card (no upload);
+ - the program's own record of those runs (profiling.report: per span,
+   the median self time and count a call) and its counters a run (host
+   syncs, bytes each way, launches per kernel);
  - the detection funnel (profiling.format_funnel: candidates, rejections
    by stage and survivors per octave and level; of the last volume for a
    batch);
@@ -20,7 +23,12 @@ drawn from seeds 101, 102, ...), and prints, per volume or per batch:
    share; the rest is host time with the device idle), and the number of
    device operations launched (kernels, copies and fills: the sum of
    `count` over the device events), and the host operations that took
-   the most self CPU time;
+   the most self CPU time; the spans' images on the card's timeline are
+   not device work;
+ - the card's idle time in that run's detect and describe stages, each
+   stretch put down to the innermost program span open on the host then
+   (profiling.idle_by_span, on the shared clock), and the share of it
+   that a stage span below the calls' roots covers;
  - torch.cuda.max_memory_allocated() over describe, beside what was
    allocated when describe started (the pyramid it reads).
 --table PATH also writes the profiler's full table there.
@@ -39,9 +47,11 @@ Usage: python tools/torch_profile.py [--dense] [--size N] [--refine]
 from __future__ import annotations
 
 import argparse
+import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -138,6 +148,17 @@ def main(argv=None) -> int:
           f"ms (quartiles {q1:.2f}-{q3:.2f})")
     print(f"  StageTimes over the {args.repeats} runs:")
     print("\n".join("    " + line for line in times.report().splitlines()))
+    calls = profiling.read()["calls"][-2 * args.repeats:]
+    print(f"  the program's spans over the {args.repeats} runs (median self "
+          f"time and count a call):")
+    print("\n".join("    " + line
+                    for line in profiling.report(calls).splitlines()))
+    counters = {}
+    for c in calls:
+        for k, v in c["counters"].items():
+            counters[k] = counters.get(k, 0) + v
+    print("  counters a run: " + ", ".join(
+        f"{k} {v / args.repeats:g}" for k, v in sorted(counters.items())))
 
     kp = detect(vol)
     print("  detection funnel" + (" (the batch's last volume)"
@@ -162,10 +183,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t0) * 1e3
-    # The stage spans have an image on the card's timeline: not device work.
+    # The spans have an image on the card's timeline: not device work.
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-              and e.key not in times.times]
+              and e.key not in times.times
+              and not e.key.startswith("sift3d.")]
     events.sort(key=_device_us, reverse=True)
     busy = sum(_device_us(e) for e in events) / 1e3
     launches = sum(e.count for e in events)
@@ -183,6 +205,20 @@ def main(argv=None) -> int:
     for e in host[:12]:
         print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    full = profiling.read()["full"][-2:]
+    idle = profiling.idle_by_span(trace, full, within=("detect", "describe"))
+    total = sum(idle.values())
+    roots = {s[0][0] for s in full}
+    staged = sum(v for k, v in idle.items() if k not in roots | {"_none"})
+    print(f"  card idle in the profiled run's detect and describe: "
+          f"{total * 1e3:.2f} ms, {100 * staged / max(total, 1e-12):.1f}% "
+          f"of it under a stage span; by innermost program span:")
+    for k, v in sorted(idle.items(), key=lambda kv: -kv[1]):
+        print(f"    {v * 1e3:9.3f} ms  {k}")
     if args.table:
         out = Path(args.table)
         out.parent.mkdir(parents=True, exist_ok=True)
