@@ -24,7 +24,6 @@ import torch
 
 from .ops.extrema_kernel import extrema_candidates
 from .params import DetectorParams
-from .profiling import to_device
 
 
 class OctaveCandidates(NamedTuple):
@@ -53,8 +52,9 @@ def detect_extrema_octave(dog_oct: torch.Tensor, dogmax: torch.Tensor,
     coordinates and in the volume's order."""
     *lead, Ld, nx, ny, nz = dog_oct.shape
     gnz = nz if global_nz is None else int(global_nz)
-    thr = to_device(params.peak_thresh, torch.float32,
-                    dog_oct.device) * dogmax[..., 1:Ld - 1]
+    # A Python scalar: multiplied in f32 on either device (the scalar
+    # rounded to f32 first), with nothing to upload.
+    thr = dogmax[..., 1:Ld - 1] * params.peak_thresh
     keys, counts = extrema_candidates(dog_oct, thr.contiguous(),
                                       params.cuboid_extrema,
                                       z_origin=z_origin, global_nz=global_nz,

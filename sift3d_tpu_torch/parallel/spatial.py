@@ -53,6 +53,7 @@ from ..ops.blur_kernel import _diags, blur_x, chain_octave
 from ..ops.desc_kernel import level_radius
 from ..params import DESC_NUMEL, DetectorParams
 from ..pipeline import COL_LEVEL, COLS_R, SIFT3D, SlabView
+from ..profiling import to_host
 from ..pyramid import PyramidPlan, make_plan, scale_to_unit
 from ..volume import Volume, as_volume
 from ..windows import window_extent
@@ -255,7 +256,7 @@ class ShardedSIFT3D:
                 sl = slabs[0]
                 rows = self._dets[sl.device]._octave(
                     plan, o, sl.gpyr[None], sl.dog[None], dogmax[None])
-                blocks = [] if rows is None else [rows]
+                blocks = [] if rows is None else [to_host(rows).numpy()]
             else:
                 nz = plan.octave_dims[o][2]
                 g = ori_halo(plan, o, self.params)
@@ -270,6 +271,7 @@ class ShardedSIFT3D:
                         plan, o, sl.gpyr[None], dogs[s][None],
                         dogmax.to(sl.device)[None], view)
                     if rows is not None:
+                        rows = to_host(rows).numpy()
                         # R reads NaN only where the orientation kernel
                         # found a window outside the slab: a halo too
                         # thin.

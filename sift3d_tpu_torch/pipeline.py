@@ -16,17 +16,20 @@ dynamic shapes; only the assembled keypoints go to the host.
 
 A batch of same-shape volumes (detect_keypoints_batch,
 extract_descriptors_batch) runs every stage for all volumes at once: each
-kernel launches as often for the batch as for one volume, and each octave
-goes to the host in one copy. A single volume is a batch of one whose
-octaves take the single-volume stacks (no volume index to decode). The
-batch is split into sub-batches whose transient buffers fit MEM_SHARE of
-the card's free memory beside the batch's pyramid, which is kept for the
-descriptors (SUB_BATCH forces a size).
+kernel launches as often for the batch as for one volume, and the rows of
+all octaves of a sub-batch go to the host in one copy. A single volume is
+a batch of one whose octaves take the single-volume stacks (no volume
+index to decode). The batch is split into sub-batches whose transient
+buffers fit MEM_SHARE of the card's free memory beside the batch's
+pyramid, which is kept for the descriptors (SUB_BATCH forces a size).
 
 Each public call is a root span of the recorder (profiling.py:
 sift3d.detect[_batch], sift3d.describe[_batch]) holding the stage spans
 sift3d.detect.* and sift3d.describe.*, and every host-device crossing
 goes through profiling.to_device, to_host or read_int, which count them.
+Only the host's reads wait for the card: an octave's candidate count
+(it sizes the octave's buffers), a sub-batch's rows and the
+descriptors; the uploads are queued in stream order.
 
 Detection also leaves a funnel in SIFT3D._funnel, as the JAX package's
 SIFT3D does (sift3d_tpu/pipeline.py:1587-1600; profiling.detect_stats
@@ -34,9 +37,9 @@ reads it): per (octave, keypoint level), the candidates, the rejections
 of the orientation stage in the reference's short-circuit order (weak
 gradient, eigenvalue ratio, corner; sift.c:996-1102) and the survivors.
 Candidates that the edge test drops count as candidates and survivors
-of no stage. The predicates come home in the octave's one host copy;
-the counts are taken from those rows when _funnel is first read, not on
-the detection's path. After a batch the funnel is the last volume's.
+of no stage. The predicates come home with the sub-batch's rows; the
+counts are taken from those rows when _funnel is first read, not on the
+detection's path. After a batch the funnel is the last volume's.
 
 Reference quirk replicated by default: the reference's compaction copies
 every keypoint field EXCEPT strength (copy_Keypoint, sift.c:372-384), so
@@ -205,12 +208,21 @@ class SIFT3D:
                 _, dogs, dogmax = build_gpyr_and_dog(
                     x, plan, [g[s:s + sub] for g in gpyr])
             del x
+            blocks = []   # (octave, its rows on the device)
             for o in range(plan.num_octaves):
                 rows = self._octave(plan, o, gpyr[o][s:s + sub], dogs[o],
                                     dogmax[o])
                 if rows is not None:
-                    parts.append((o, s, min(sub, B - s), rows))
+                    blocks.append((o, rows))
             del dogs, dogmax
+            if blocks:
+                # Every octave's rows in one copy, split by the candidate
+                # counts the host already knows.
+                with span("sift3d.detect.rows_home"):
+                    host = to_host(torch.cat([b for _, b in blocks])).numpy()
+                ends = np.cumsum([len(b) for _, b in blocks])[:-1]
+                parts += [(o, s, min(sub, B - s), rows) for (o, _), rows
+                          in zip(blocks, np.split(host, ends))]
         self._plan, self._gpyr = plan, gpyr
         self._input_shape = tuple(int(d) for d in data.shape[1:])
         with span("sift3d.detect.assembly"):
@@ -246,16 +258,17 @@ class SIFT3D:
         self._input_shape = tuple(int(d) for d in input_shape)
 
     def _octave(self, plan, o, gpyr_o, dog, dogmax,
-                slab: SlabView | None = None) -> np.ndarray | None:
+                slab: SlabView | None = None) -> torch.Tensor | None:
         """Candidates of octave o of a (sub-)batch, volume-major and in
         each volume level -> z, y, x order, their refinement when an
-        extension is on, their orientations: one host copy of their rows
-        (None without candidates). Columns (COL_*): coordinates or
-        refined centers (3), strength, accepted, the orientation's
-        weak-gradient, ratio and corner predicates (none set where the
-        edge test rejects, as JAX masks them), R (9), the refined scale
-        (with an extension on), and last the level: of one volume, its
-        keypoint level; of a batch, the level in the sub-batch's stack.
+        extension is on, their orientations: their rows, f32 on the
+        detector's device (None without candidates). Columns (COL_*):
+        coordinates or refined centers (3), strength, accepted, the
+        orientation's weak-gradient, ratio and corner predicates (none
+        set where the edge test rejects, as JAX masks them), R (9), the
+        refined scale (with an extension on), and last the level: of one
+        volume, its keypoint level; of a batch, the level in the
+        sub-batch's stack.
 
         Refined (sift3d_tpu/pipeline.py:1549-1562): center = coords +
         offset, sd = scale[level + 1] * 2^(ds / nl), and the edge test's
@@ -280,9 +293,8 @@ class SIFT3D:
         if cand.level.numel() == 0:
             return None
         with span("sift3d.detect.orientation"):
-            cols = self._orient(plan, o, gpyr_o, dog, cand, slab, zkw)
-        with span("sift3d.detect.rows_home"):
-            return to_host(torch.cat(cols, dim=1)).numpy()
+            return torch.cat(self._orient(plan, o, gpyr_o, dog, cand, slab,
+                                          zkw), dim=1)
 
     def _orient(self, plan, o, gpyr_o, dog, cand, slab, zkw) -> list:
         """_octave's refinement (with an extension on) and orientation of
@@ -324,7 +336,7 @@ class SIFT3D:
         flags = ori.flags & ref.edge_ok[:, None] if ext else ori.flags
         K = cand.level.numel()
         # Every column in f32 (exact for these values: coordinates and
-        # stack levels are below 2^24), for one copy.
+        # stack levels are below 2^24), for one block.
         return ([centers if ext else cand.coords.to(torch.float32),
                  cand.strength[:, None], flags.to(torch.float32),
                  ori.R.reshape(K, 9)] + ([sd[:, None]] if ext else [])

@@ -14,15 +14,17 @@ thread that opened it; the totals are shared under a lock):
    the in-memory record (a record_function costs ~10x a bare span even
    with the profiler off).
  - ``count(name, n)`` adds to a counter of the current call and to its
-   process-wide total (``counter(name)``): ``host_syncs``, ``h2d_bytes``,
-   ``d2h_bytes``, ``launch.<kernel symbol>`` (ops/_build.call) and
-   ``kernels.builds``.
+   process-wide total (``counter(name)``): ``host_syncs``, ``h2d_async``,
+   ``h2d_bytes``, ``d2h_bytes``, ``launch.<kernel symbol>``
+   (ops/_build.call) and ``kernels.builds``.
  - ``to_device``, ``to_host`` and ``read_int`` are the main path's
-   host-device crossings. Each copy between host memory and a CUDA device
-   is blocking (from or to pageable memory: it waits for the work queued
-   before it), runs inside a span (``sift3d.to_device``, ``sift3d.to_host``,
-   ``sift3d.read_int``) and counts one ``host_syncs`` and its bytes; on
-   the CPU they copy nothing and count nothing.
+   host-device crossings, each inside a span (``sift3d.to_device``,
+   ``sift3d.to_host``, ``sift3d.read_int``) that counts its bytes. An
+   upload is stream-ordered: staged in pinned memory, it waits for
+   nothing and counts one ``h2d_async``. A copy home waits for the work
+   queued before it, since the host reads its value, and counts one
+   ``host_syncs``; the rows and descriptors land in pinned memory. On the
+   CPU the helpers copy nothing and count nothing.
  - ``read()``: the last RING_CALLS calls' records (per span name: count,
    host time and self time, the time outside its child spans; per counter:
    its total), the full span lists with stamps of the last FULL_CALLS
@@ -199,11 +201,11 @@ def count(name: str, n: int = 1) -> None:
         t.call.counters[name] += n
 
 
-def _crossed(bytes_name: str, nbytes: int) -> None:
-    """count("host_syncs") and count(bytes_name, nbytes), at once."""
+def _crossed(kind: str, bytes_name: str, nbytes: int) -> None:
+    """count(kind) and count(bytes_name, nbytes), at once."""
     for c in ((_tls.counters,) if _tls.call is None
               else (_tls.counters, _tls.call.counters)):
-        c["host_syncs"] += 1
+        c[kind] += 1
         c[bytes_name] += nbytes
 
 
@@ -214,28 +216,37 @@ def counter(name: str) -> int:
 
 
 def to_device(x, dtype=None, device=None) -> torch.Tensor:
-    """torch.as_tensor(x, dtype=dtype, device=device); where that copies
-    host memory to a CUDA device, inside a span that counts one host sync
-    and the copy's bytes (h2d_bytes)."""
+    """torch.as_tensor(x, dtype=dtype, device=device). Host memory bound
+    for a CUDA device is copied into a pinned block of torch's caching
+    host allocator and from there onto the device's current stream
+    without a wait, inside a span that counts one h2d_async and the
+    bytes (h2d_bytes). The caller may change x as soon as this returns;
+    the allocator hands the block out again only once its copy has run."""
     if (device is None
             or (device if isinstance(device, torch.device)
                 else torch.device(device)).type != "cuda"
             or (isinstance(x, torch.Tensor) and x.device.type != "cpu")):
         return torch.as_tensor(x, dtype=dtype, device=device)
     with span("sift3d.to_device"):
-        out = torch.as_tensor(x, dtype=dtype, device=device)
-    _crossed("h2d_bytes", out.nbytes)
+        src = torch.as_tensor(x, dtype=dtype)
+        staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        staged.copy_(src)
+        out = staged.to(device, non_blocking=True)
+    _crossed("h2d_async", "h2d_bytes", out.nbytes)
     return out
 
 
 def to_host(t: torch.Tensor) -> torch.Tensor:
-    """t.cpu(); from a CUDA device, inside a span that counts one host
-    sync and the copy's bytes (d2h_bytes)."""
+    """t.cpu(); from a CUDA device into pinned memory, waiting once for
+    t's stream, inside a span that counts one host sync and the copy's
+    bytes (d2h_bytes)."""
     if t.device.type != "cuda":
         return t.cpu()
     with span("sift3d.to_host"):
-        out = t.cpu()
-    _crossed("d2h_bytes", out.nbytes)
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+    _crossed("host_syncs", "d2h_bytes", out.nbytes)
     return out
 
 
@@ -246,7 +257,7 @@ def read_int(t: torch.Tensor) -> int:
         return int(t)
     with span("sift3d.read_int"):
         n = int(t)
-    _crossed("d2h_bytes", t.element_size())
+    _crossed("host_syncs", "d2h_bytes", t.element_size())
     return n
 
 

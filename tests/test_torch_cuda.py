@@ -710,8 +710,11 @@ def test_stage_sync_waits_for_the_card(dev):
 def test_host_syncs_equal_sync_debug_warnings(dev, tmp_path):
     """One detect_keypoints_batch + extract_descriptors_batch call: under
     torch.cuda.set_sync_debug_mode("warn") it warns exactly as often as the
-    recorder counts host_syncs, and the h2d_bytes + d2h_bytes it counts are
-    the bytes of the host-device copies in the profiler's trace."""
+    recorder counts host_syncs: one count read an octave, one copy of the
+    rows and one of the descriptors. In the profiler's trace each host
+    sync is one DtoH copy and each stream-ordered upload (h2d_async) one
+    HtoD copy, the h2d_bytes + d2h_bytes counted are those copies' bytes,
+    and no pinned block is allocated anew after the warm-up call."""
     import json
     import warnings
     import sift3d_tpu_torch as st
@@ -736,17 +739,105 @@ def test_host_syncs_equal_sync_debug_warnings(dev, tmp_path):
     calls = profiling.read()["calls"][-2:]
     assert [c["root"] for c in calls] == ["sift3d.detect_batch",
                                           "sift3d.describe_batch"]
-    syncs = sum(c["counters"].get("host_syncs", 0) for c in calls)
+
+    def total(*names):
+        return sum(c["counters"].get(k, 0) for c in calls for k in names)
+    syncs, uploads = total("host_syncs"), total("h2d_async")
+    assert det.sub_batch == 2 and sum(map(len, kps)) > 0
+    assert syncs == det._plan.num_octaves + 2
     warned = [w for w in caught
               if "called a synchronizing CUDA operation" in str(w.message)]
-    assert syncs == len(warned) > 0, (syncs, [str(w.message)
-                                              for w in warned])
-    counted = sum(c["counters"].get(k, 0) for c in calls
-                  for k in ("h2d_bytes", "d2h_bytes"))
+    assert syncs == len(warned), (syncs, [str(w.message) for w in warned])
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
-    copies = [e for e in json.loads(path.read_text())["traceEvents"]
-              if e.get("cat") == "gpu_memcpy"
-              and ("HtoD" in e["name"] or "DtoH" in e["name"])]
-    assert len(copies) == syncs
-    assert counted == sum(int(e["args"]["bytes"]) for e in copies)
+    events = json.loads(path.read_text())["traceEvents"]
+    assert not [e for e in events if e.get("name") == "cudaHostAlloc"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    up = [e for e in copies if "HtoD" in e["name"]]
+    down = [e for e in copies if "DtoH" in e["name"]]
+    assert len(up) == uploads > 0
+    assert len(down) == syncs
+    assert total("h2d_bytes", "d2h_bytes") == sum(
+        int(e["args"]["bytes"]) for e in up + down)
+
+
+def test_to_device_keeps_the_values_of_its_call(dev):
+    """An upload queued behind a long run of kernels returns before the
+    card reaches it, and lands with the values the array held at the
+    call, though the caller overwrites the array at once."""
+    from sift3d_tpu_torch import profiling
+    a = torch.randn(4096, 4096, device=dev) / 64.0
+    torch.cuda.synchronize()
+    before = (profiling.counter("h2d_async"), profiling.counter("host_syncs"))
+    x = a
+    for _ in range(20):
+        x = x @ a
+    host = np.arange(1 << 20, dtype=np.float32)
+    want = host.copy()
+    t = profiling.to_device(host, None, dev)
+    busy = not torch.cuda.current_stream(dev).query()
+    host[:] = -1.0
+    torch.cuda.synchronize()
+    assert busy
+    assert np.array_equal(t.cpu().numpy(), want)
+    assert (profiling.counter("h2d_async"),
+            profiling.counter("host_syncs")) == (before[0] + 1, before[1])
+    del x
+
+
+def test_back_to_back_uploads_under_load_stay_intact(dev):
+    """Hundreds of same-size uploads of distinct values, all queued behind
+    a long run of kernels: each lands intact, so no pinned block is handed
+    out again before its copy has run."""
+    from sift3d_tpu_torch import profiling
+    a = torch.randn(4096, 4096, device=dev) / 64.0
+    torch.cuda.synchronize()
+    x = a
+    for _ in range(20):
+        x = x @ a
+    outs = []
+    for i in range(400):
+        outs.append(profiling.to_device(np.full(4096, i, np.float32), None,
+                                        dev) + x[0, 0] * 0)
+    torch.cuda.synchronize()
+    got = torch.stack(outs).cpu().numpy()
+    want = np.repeat(np.arange(400, dtype=np.float32)[:, None], 4096, 1)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int64, torch.bool])
+def test_to_host_equals_cpu_bit_for_bit(dev, dtype):
+    """to_host (pinned, one wait) equals .cpu() bit for bit, also for a
+    strided view and for a tensor the kernels before it are still
+    writing."""
+    from sift3d_tpu_torch import profiling
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(1000, 771, device=dev, generator=g)
+    x[3, 5], x[7, 0] = float("nan"), float("inf")
+    a = torch.randn(4096, 4096, device=dev) / 64.0
+    y = a
+    for _ in range(10):
+        y = y @ a
+    x = x + y[:1000, :771] * 0
+    x = x > 0 if dtype == torch.bool else x.to(dtype)
+    for t in (x, x[::3, 1::2]):
+        got = profiling.to_host(t)
+        assert got.is_pinned() and got.dtype == t.dtype
+        want = t.cpu()
+        assert got.shape == want.shape
+        assert np.array_equal(got.numpy().view(np.uint8),
+                              want.contiguous().numpy().view(np.uint8))
+
+
+def test_scalar_threshold_equals_f32_tensor_product_on_card(dev):
+    """detect_extrema_octave's threshold, max |DoG| times peak_thresh as
+    a Python scalar, is bit for bit the product with an f32 tensor on the
+    card too."""
+    g = np.random.default_rng(3)
+    mag = g.random(200_000).astype(np.float32) + np.float32(0.5)
+    exp = g.integers(-140, 127, mag.size).astype(np.int32)
+    v = torch.from_numpy(np.ldexp(mag, exp)).to(dev)
+    for p in (0.1, 0.02, 1 / 3):
+        want = torch.tensor(p, dtype=torch.float32, device=dev) * v
+        got = v * p
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -97,3 +97,18 @@ def test_candidate_keys_match_jax_xla_path_odd_z(cuboid):
     assert np.array_equal(got.level.numpy(), np.asarray(ref.level)[valid])
     assert np.array_equal(got.strength.numpy(),
                           np.asarray(ref.strength)[valid])
+
+
+@pytest.mark.parametrize("peak_thresh", [0.1, 0.02, 1 / 3])
+def test_threshold_scalar_equals_f32_tensor_product(peak_thresh):
+    """detect_extrema_octave multiplies max |DoG| by peak_thresh as a
+    Python scalar: bit for bit the product with the threshold as an f32
+    tensor, over values from subnormal to near overflow."""
+    g = np.random.default_rng(3)
+    mag = g.random(200_000).astype(np.float32) + np.float32(0.5)
+    exp = g.integers(-140, 127, mag.size).astype(np.float32)
+    v = torch.from_numpy(np.ldexp(mag, exp.astype(np.int32)))
+    want = torch.as_tensor(peak_thresh, dtype=torch.float32) * v
+    got = v * peak_thresh
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

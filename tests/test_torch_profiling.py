@@ -432,10 +432,16 @@ def test_report_has_stage_times_layout():
 
 
 def test_crossings_on_the_cpu_copy_and_count_nothing():
+    """On the CPU the helpers stage nothing: a tensor already there comes
+    back as the same object, and neither host_syncs nor h2d_async (nor
+    any other counter) moves."""
     before = profiling.read()["counters"]
     a = np.arange(6, dtype=np.float64)
     t = profiling.to_device(a, torch.float32, "cpu")
     assert t.dtype == torch.float32 and t.tolist() == a.tolist()
+    assert profiling.to_device(t, torch.float32, "cpu") is t
+    assert profiling.to_device(t, None, torch.device("cpu")) is t
+    assert profiling.to_device(t) is t
     assert profiling.to_host(t) is t
     assert profiling.read_int(torch.tensor([5])[0]) == 5
     assert profiling.read()["counters"] == before

@@ -14,6 +14,8 @@ drift and the spread between processes hit both alike:
    shards of the card (make_mesh({"z": S}, ["cuda:0"] * S));
  - --batch B: detect_keypoints_batch + extract_descriptors_batch on B
    volumes, the phantom and B - 1 drawn from seeds 101, 102, ...
+ - --host: the volume (or batch) held in host memory, a numpy array that
+   each call uploads (default: already on the card).
 Each run ends in a device sync. Prints the card, then per tree the median
 wall and its quartiles over --rounds (41) rounds after a warm-up, and the
 median of the paired differences A - B with the share of rounds in which
@@ -21,7 +23,7 @@ A was the faster.
 
 Usage: python tools/torch_ab_wall.py --other DIR [--size N] [--dense]
                                      [--refine] [--register] [--shards S]
-                                     [--batch B] [--rounds N]
+                                     [--batch B] [--host] [--rounds N]
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ def main(argv=None) -> int:
     ap.add_argument("--register", action="store_true")
     ap.add_argument("--shards", type=int, default=0)
     ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--host", action="store_true")
     ap.add_argument("--rounds", type=int, default=41)
     args = ap.parse_args(argv)
 
@@ -91,6 +94,9 @@ def main(argv=None) -> int:
         moving = trees["A"].warp_volume(
             vol, np.linalg.inv(A)[:3].astype(np.float32), (n, n, n),
             device="cuda").data
+    if args.host:
+        vol, vols, moving = (None if v is None else v.cpu().numpy()
+                             for v in (vol, vols, moving))
 
     def job(st):
         params = (st.DetectorParams(refine_subvoxel=True, edge_thresh=10.0)
@@ -130,7 +136,7 @@ def main(argv=None) -> int:
             f"{' register pair' if args.register else ''}"
             f"{f' on {args.shards} shards' if args.shards else ''}"
             f"{f' batch of {args.batch}' if args.batch else ''}, input "
-            f"on the card")
+            f"{'in host memory' if args.host else 'on the card'}")
     print(f"{what}, {args.rounds} rounds alternating A and B, on {card}")
     for k, root in (("A", REPO), ("B", args.other.resolve())):
         w = walls[k]
